@@ -1,0 +1,79 @@
+"""Core of the port: the paper's parallel Quick Sort on the OHHC in torch.
+
+Modules mirror ``repro.core``: topology (OHHC graph) and schedule
+(accumulation schedule) are copies; workloads holds the copied host bucket
+rule; partition (Array Division Procedure), ohhc_sort (simulated and host
+sorts) and engine (the autotuned dispatch layer) run on torch tensors.
+"""
+
+from repro_torch.core.topology import OHHCTopology, table_1_1, HHC_SIZE
+from repro_torch.core.schedule import AccumulationSchedule, payload_bytes_per_round
+from repro_torch.core.partition import (
+    bucket_counts,
+    bucket_ranks,
+    default_capacity,
+    pack_segments,
+    paper_bucket_ids,
+    sampled_splitters,
+    scatter_to_buckets,
+    splitter_bucket_ids,
+    unpack_segments,
+    unscatter,
+)
+from repro_torch.core.ohhc_sort import (
+    LinkModel,
+    model_comm_time_s,
+    ohhc_sort_host,
+    ohhc_sort_sim,
+)
+from repro_torch.core.workloads import check_sorted, host_bucket_ids
+from repro_torch.core.engine import (
+    BITONIC_METHODS,
+    ROW_BACKENDS,
+    SEGMENT_BITONIC_MAX,
+    InputStats,
+    SortEngine,
+    SortPlan,
+    autotune_capacity,
+    choose_batch_plan,
+    choose_plan,
+    choose_row_backend,
+    estimate_batch_stats,
+    estimate_stats,
+)
+
+__all__ = [
+    "BITONIC_METHODS",
+    "ROW_BACKENDS",
+    "SEGMENT_BITONIC_MAX",
+    "InputStats",
+    "SortEngine",
+    "SortPlan",
+    "autotune_capacity",
+    "choose_batch_plan",
+    "choose_plan",
+    "choose_row_backend",
+    "estimate_batch_stats",
+    "estimate_stats",
+    "OHHCTopology",
+    "table_1_1",
+    "HHC_SIZE",
+    "AccumulationSchedule",
+    "payload_bytes_per_round",
+    "bucket_counts",
+    "bucket_ranks",
+    "default_capacity",
+    "pack_segments",
+    "paper_bucket_ids",
+    "sampled_splitters",
+    "scatter_to_buckets",
+    "splitter_bucket_ids",
+    "unpack_segments",
+    "unscatter",
+    "LinkModel",
+    "model_comm_time_s",
+    "ohhc_sort_host",
+    "ohhc_sort_sim",
+    "check_sorted",
+    "host_bucket_ids",
+]

@@ -1,0 +1,44 @@
+"""Hand-written CUDA kernels of the port, each beside its plain torch version.
+
+* ``bitonic``          — bitonic tile sort (``sort_tile``) and in-place
+                         two-tile merge (``merge_tile_pairs``/``merge_tiles``)
+* ``batched``          — fused segmented row sort (``batched_row_sort``)
+* ``partition_kernel`` — bucket histogram + stable ranks
+                         (``bucket_count_rank``)
+* ``ops``              — the compositions the core calls
+* ``ref``              — plain-torch oracles (library sorts)
+
+Sources are in ``csrc/`` and are built by ``_build`` on first use.  Every
+kernel wrapper carries a ``launches`` count of the kernels it launched.
+"""
+
+from repro_torch.kernels import batched, bitonic, ops, partition_kernel, ref
+
+# Name → wrapper whose ``launches`` counts that kernel's launches.
+KERNELS = {
+    "bucket_count_rank": partition_kernel.bucket_count_rank,
+    "sort_tile": bitonic.sort_tile,
+    "merge_tiles": bitonic.merge_tile_pairs,
+    "batched_row_sort": batched.batched_row_sort,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = [
+    "KERNELS",
+    "batched",
+    "bitonic",
+    "launch_counts",
+    "ops",
+    "partition_kernel",
+    "ref",
+    "reset_launches",
+]

@@ -1,0 +1,215 @@
+"""The port's kernels (``repro_torch.kernels``) against the JAX package's
+Pallas kernels, which run here in interpret mode as their own tests run them.
+
+On the CPU every wrapper runs its kernel's plain torch version, so these
+tests pin the plain versions — the same networks the CUDA kernels compute —
+to the TPU kernels exactly, on the same numpy inputs.  The CUDA kernels
+themselves are held to these plain versions on the card by
+``test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import batched as jbatched
+from repro.kernels import bitonic as jbitonic
+from repro.kernels import ops as jops
+from repro_torch import dtypes
+from repro_torch.kernels import (
+    KERNELS,
+    batched,
+    bitonic,
+    launch_counts,
+    ops,
+    partition_kernel,
+    ref,
+)
+
+DTYPES = (np.int8, np.int16, np.int32, np.int64, np.uint32, np.float32)
+
+
+def _keys(rng, shape, dtype):
+    dt = np.dtype(dtype)
+    if np.issubdtype(dt, np.integer):
+        info = np.iinfo(dt)
+        # int64 keys stay inside int32: jax without x64 holds 32 bits
+        lo, hi = (info.min, info.max) if dt.itemsize <= 4 else (-(2**31), 2**31 - 1)
+        return rng.integers(lo, hi, shape, dtype=np.int64, endpoint=True).astype(dt)
+    return rng.standard_normal(shape).astype(dt)
+
+
+def _port(x):
+    return dtypes.to_device(x, "cpu")
+
+
+def _back(t, dtype):
+    return dtypes.to_numpy(t, dtype)
+
+
+def _same(a, b):
+    # floats: -0.0 and +0.0 compare equal and may swap places
+    if a.dtype == np.int64 and b.dtype == np.int32:
+        b = b.astype(np.int64)  # jax without x64 returned the 32-bit twin
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_sort_tile_plain_matches_pallas(dtype, rng):
+    x = _keys(rng, 256, dtype)
+    x[::9] = x[3]  # ties
+    want = np.asarray(jbitonic.sort_tile(jnp.asarray(x), interpret=True))
+    _same(_back(bitonic.sort_tile(_port(x)), dtype), want)
+
+
+def test_sort_tile_rows_match_pallas_per_row(rng):
+    x = _keys(rng, (3, 128), np.int16)
+    got = _back(bitonic.sort_tile(_port(x)), np.int16)
+    for i in range(3):
+        _same(got[i], np.asarray(jbitonic.sort_tile(jnp.asarray(x[i]), interpret=True)))
+
+
+@pytest.mark.parametrize("dtype", (np.int8, np.int32, np.uint32, np.float32), ids=lambda d: np.dtype(d).name)
+def test_merge_tiles_plain_matches_pallas(dtype, rng):
+    a = np.sort(_keys(rng, 128, dtype))
+    b = np.sort(_keys(rng, 128, dtype))
+    want_lo, want_hi = jbitonic.merge_tiles(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    lo, hi = bitonic.merge_tiles(_port(a), _port(b))
+    _same(_back(lo, dtype), np.asarray(want_lo))
+    _same(_back(hi, dtype), np.asarray(want_hi))
+
+
+@pytest.mark.parametrize("dtype", (np.int32, np.float32), ids=lambda d: np.dtype(d).name)
+def test_local_sort_multi_tile_matches_pallas(dtype, rng, monkeypatch):
+    # a 128-key tile forces the odd-even merge passes at a small size:
+    # 700 keys pad to 1024, eight tiles, eight half-passes
+    monkeypatch.setattr(jops, "MAX_TILE", 128)
+    monkeypatch.setattr(ops, "MAX_TILE", 128)
+    x = _keys(rng, 700, dtype)
+    want = np.asarray(jops.local_sort(jnp.asarray(x), interpret=True))
+    _same(_back(ops.local_sort(_port(x)), dtype), want)
+    rows = _keys(rng, (3, 300), dtype)
+    got = _back(ops.local_sort(_port(rows)), dtype)
+    for i in range(3):
+        _same(got[i], np.sort(rows[i]))
+
+
+def test_merge_tile_pairs_odd_half_pass_leaves_the_ends(rng):
+    tiles = np.sort(_keys(rng, (2, 4, 128), np.int32), axis=-1)
+    buf = torch.from_numpy(tiles.copy())
+    bitonic.merge_tile_pairs(buf, 1)
+    out = buf.numpy()
+    _same(out[:, 0], tiles[:, 0])
+    _same(out[:, 3], tiles[:, 3])
+    for r in range(2):
+        _same(out[r, 1:3].ravel(), np.sort(tiles[r, 1:3].ravel()))
+
+
+@pytest.mark.parametrize(
+    "n,num_buckets,case",
+    [(0, 4, "empty"), (1, 1, "one"), (1000, 7, "ragged"), (3000, 16, "tiles"), (2048, 5, "out_of_range")],
+)
+def test_bucket_count_rank_plain_matches_pallas(n, num_buckets, case, rng):
+    ids = rng.integers(0, num_buckets, n).astype(np.int32)
+    if case == "out_of_range":
+        # not counted and rank 0 on both sides, and nothing written past counts
+        ids[::5] = -1
+        ids[1::5] = num_buckets
+    want_c, want_r = jops.bucket_count_rank(jnp.asarray(ids), num_buckets, interpret=True)
+    got_c, got_r = partition_kernel.bucket_count_rank(torch.from_numpy(ids), num_buckets)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    ref_c, ref_r = ref.ref_bucket_count_rank(torch.from_numpy(ids), num_buckets)
+    np.testing.assert_array_equal(got_c.numpy(), ref_c.numpy())
+    np.testing.assert_array_equal(got_r.numpy(), ref_r.numpy())
+
+
+def test_bucket_count_rank_plain_chunks_carry_counts(rng, monkeypatch):
+    monkeypatch.setattr(partition_kernel, "_PLAIN_CHUNK", 100)
+    ids = torch.from_numpy(rng.integers(0, 6, 1234).astype(np.int32))
+    got = partition_kernel.bucket_count_rank(ids, 6)
+    want = ref.ref_bucket_count_rank(ids, 6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bucket_count_rank_debug_range_check():
+    ids = np.array([0, 3, 5, -1], np.int32)
+    with pytest.raises(ValueError, match="out of range"):
+        jops.bucket_count_rank(jnp.asarray(ids), 4, interpret=True, debug=True)
+    with pytest.raises(ValueError, match="out of range"):
+        partition_kernel.bucket_count_rank(torch.from_numpy(ids), 4, debug=True)
+
+
+def _row_batch(rng, dtype, length):
+    lens = np.array([0, 1, 127, 128, 129, 200, 255, 256, 256, 3], np.int32)
+    x = _keys(rng, (lens.size, length), dtype)  # garbage in the pad cells
+    sentinel = np.iinfo(dtype).max if np.issubdtype(np.dtype(dtype), np.integer) else np.inf
+    x[8] = sentinel  # a full row of keys equal to the sentinel
+    x[5, ::3] = sentinel  # sentinel ties inside a row
+    return x, lens
+
+
+@pytest.mark.parametrize("method", batched.METHODS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_batched_row_sort_plain_matches_pallas(dtype, method, rng):
+    x, lens = _row_batch(rng, dtype, 256)
+    got = _back(batched.batched_row_sort(_port(x), torch.from_numpy(lens), method=method), dtype)
+    for i, n in enumerate(lens):
+        _same(got[i, :n], np.sort(x[i, :n]))
+    if np.dtype(dtype) == np.int64:
+        # jax without x64 holds 32 bits and so another sentinel: np.sort
+        # and the int64 sentinel tail are the oracle
+        assert (got == np.where(np.arange(256) < lens[:, None], got, np.iinfo(np.int64).max)).all()
+        return
+    want = np.asarray(
+        jbatched.batched_row_sort(jnp.asarray(x), jnp.asarray(lens), method=method, interpret=True)
+    )
+    _same(got, want)
+
+
+@pytest.mark.parametrize(
+    "call,err",
+    [
+        (lambda: bitonic.sort_tile(torch.zeros(96, dtype=torch.int32)), ValueError),
+        (lambda: bitonic.sort_tile(torch.zeros(384, dtype=torch.int32)), ValueError),
+        (lambda: bitonic.sort_tile(torch.zeros(128, dtype=torch.float64)), TypeError),
+        (lambda: bitonic.merge_tiles(torch.zeros(128, dtype=torch.int32), torch.zeros(256, dtype=torch.int32)), ValueError),
+        (lambda: batched.batched_row_sort(torch.zeros(2, 128, dtype=torch.int32), torch.zeros(2, dtype=torch.int64)), ValueError),
+        (lambda: batched.batched_row_sort(torch.zeros(2, 16384, dtype=torch.int64), torch.zeros(2, dtype=torch.int32)), ValueError),
+        (lambda: batched.batched_row_sort(torch.zeros(2, 128, dtype=torch.int32), torch.zeros(2, dtype=torch.int32), method="quick"), ValueError),
+        (lambda: partition_kernel.bucket_count_rank(torch.zeros(4, dtype=torch.int64), 3), ValueError),
+        (lambda: partition_kernel.bucket_count_rank(torch.zeros(4, dtype=torch.int32), partition_kernel.MAX_BUCKETS + 1), ValueError),
+    ],
+    ids=["not_lanes", "not_pow2", "float64", "merge_shapes", "lens_dtype", "row_too_long", "method", "ids_dtype", "too_many_buckets"],
+)
+def test_wrappers_reject_what_the_kernels_do_not_take(call, err):
+    with pytest.raises(err):
+        call()
+
+
+def test_cpu_tensors_launch_nothing(rng):
+    before = launch_counts()
+    x = torch.from_numpy(_keys(rng, (2, 256), np.int32))
+    bitonic.sort_tile(x)
+    bitonic.merge_tiles(x[0].sort().values, x[1].sort().values)
+    batched.batched_row_sort(x, torch.tensor([3, 256], dtype=torch.int32))
+    partition_kernel.bucket_count_rank(torch.zeros(10, dtype=torch.int32), 2)
+    assert launch_counts() == before
+    assert set(before) == set(KERNELS)
+
+
+@pytest.mark.parametrize("dtype", (np.uint8, np.uint16, np.uint32, np.uint64), ids=lambda d: np.dtype(d).name)
+def test_unsigned_boundary_keeps_order_and_sentinel(dtype, rng):
+    info = np.iinfo(dtype)
+    x = rng.integers(0, info.max, 500, dtype=dtype, endpoint=True)
+    x[:3] = [0, info.max, info.max // 2 + 1]
+    k = dtypes.to_keys(x)
+    assert k.dtype == dtypes.key_dtype(dtype) and np.issubdtype(k.dtype, np.signedinteger)
+    np.testing.assert_array_equal(np.argsort(k, kind="stable"), np.argsort(x, kind="stable"))
+    assert k[1] == np.iinfo(k.dtype).max
+    back = dtypes.from_keys(k, dtype)
+    assert back.dtype == x.dtype and np.array_equal(back, x)
+    t = dtypes.to_user_tensor(torch.from_numpy(k), dtype)
+    assert np.array_equal(t.numpy(), x)
