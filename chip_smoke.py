@@ -16,8 +16,11 @@ no result line):
    the whole type, then paper scale (2^22 and 15,728,640 int32 keys, and
    2^22 keys on the 144-processor OHHC), and a profile of two requests;
 4. ``SortEngine.sort_segments`` on 64 segments of 1,000-8,192 keys with
-   each row backend, against ``np.sort`` per row;
-5. a ``kernels`` JSON line with each kernel's launches on the main path.
+   each row backend, against ``np.sort`` per row, then 64 segments of
+   9,000-65,536 keys, which take the bucket path;
+5. a ``kernels`` JSON line with each kernel's launches on the main path
+   (phase 3 for the sort kernels, the short segments for the row kernel);
+   the launches of single requests are printed on their own lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of the JAX package ``repro``.
@@ -26,6 +29,7 @@ JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -101,13 +105,18 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least milliseconds for ``nbytes`` moved and ``ops`` operations done.
+
+    Count what the function needs, not what a kernel's algorithm does: a
+    sort of n keys needs about n·log2(n) comparisons (the comparison-sort
+    lower bound, far below a bitonic network's compare-exchanges), a merge
+    of two n-key tiles 2n."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def stages(n: int) -> int:
-    k = n.bit_length() - 1
-    return k * (k + 1) // 2
+def sort_comparisons(lens) -> float:
+    return float(sum(n * math.log2(n) for n in lens if n > 1))
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -171,7 +180,7 @@ def kernel_checks() -> dict:
     ms = cuda_ms(lambda: bitonic.sort_tile(x))
     plain = cuda_ms(lambda: bitonic.sort_tile_plain(x), reps=3)
     lib = cuda_ms(lambda: torch.sort(x, dim=-1))
-    b, by = bound(2 * x.numel() * 4, 2 * (x.numel() // 2) * stages(x.shape[1]))
+    b, by = bound(2 * x.numel() * 4, sort_comparisons([x.shape[1]] * x.shape[0]))
     rows["sort_tile"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
         replaces="src/repro/kernels/bitonic.py:179", max_abs_err=err,
@@ -201,7 +210,7 @@ def kernel_checks() -> dict:
     err = max(err, same(bitonic.merge_tile_pairs(tiles), want, "merge_tile_pairs (36, 2, 2^19)"))
     ms = cuda_ms(lambda: bitonic.merge_tiles(a, c))
     plain = cuda_ms(lambda: bitonic.merge_tiles_plain(a, c), reps=3)
-    b, by = bound(4 * n * 4, 2 * n * ((2 * n).bit_length() - 1))
+    b, by = bound(4 * n * 4, 2 * n)
     rows["merge_tiles"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
         replaces="src/repro/kernels/bitonic.py:236", max_abs_err=err,
@@ -269,7 +278,9 @@ def kernel_checks() -> dict:
     timings = {m: cuda_ms(lambda m=m: batched.batched_row_sort(x, lens, method=m)) for m in batched.METHODS}
     plain = cuda_ms(lambda: batched.batched_row_sort_plain(x, lens, method="bitonic"), reps=3)
     lib = cuda_ms(lambda: torch.sort(x, dim=-1))
-    b, by = bound(2 * x.numel() * 4 + 4 * 64, 2 * (x.numel() // 2) * stages(8192))
+    # the kernel need not read the pad cells, but writes every cell
+    valid = int(lens.sum())
+    b, by = bound((valid + x.numel()) * 4 + 4 * 64, sort_comparisons(lens.cpu().tolist()))
     rows["batched_row_sort"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/batched.cu",
         replaces="src/repro/kernels/batched.py:145", max_abs_err=err,
@@ -286,6 +297,16 @@ def kernel_checks() -> dict:
 
 
 # ----------------------------------------------------------------- phase 3
+def request_launches(label: str, fn) -> dict:
+    """Kernel launches of one request (the counts' difference across it)."""
+    before = launch_counts()
+    fn()
+    after = launch_counts()
+    got = {k: after[k] - before[k] for k in after}
+    print(f"launches of one request, {label}: {got}")
+    return got
+
+
 def timed_sort(eng: SortEngine, x: np.ndarray, what: str, reps: int = 1) -> None:
     walls = []
     for _ in range(reps):
@@ -338,6 +359,11 @@ def main_path_sort() -> None:
     timed_sort(paper144, make_array("random", 1 << 22, seed=4), "P=144 int32 random n=4194304", reps=3)
     for n in (1 << 22, PAPER_MAX_KEYS):
         x = make_array("random", n, seed=2)
+        got = request_launches(f"SortEngine.sort int32 n={n}", lambda x=x: paper.sort(x))
+        runs = 1 + paper.last_report["overflow_retries"]  # a retry runs the request again
+        for name in ("bucket_count_rank", "sort_tile"):
+            if got[name] != runs:
+                fail(f"one sort of {n} keys launched {name} {got[name]} times in {runs} runs")
         profile_request(f"SortEngine.sort int32 n={n}", lambda x=x: paper.sort(x))
 
 
@@ -402,8 +428,51 @@ def main_path_segments() -> None:
                 f"wall={wall * 1e3:.2f} ms ({keys.size / wall:.4g} keys/s); {plan.reason}"
             )
             if forced is None:
+                got = request_launches(
+                    f"sort_segments {name} 64 x <=8192", lambda: eng.sort_segments(keys, lens)
+                )
+                if got["batched_row_sort"] != 1:
+                    fail(f"one sort_segments request launched the row kernel {got['batched_row_sort']} times")
                 profile_request(f"sort_segments {name} 64 x <=8192", lambda: eng.sort_segments(keys, lens))
     os.environ.pop("REPRO_ROW_BACKEND", None)
+
+
+def long_segments() -> None:
+    """Rows above the row kernel's 8,192 keys take the bucket path: one
+    count/rank, one local sort and one gather for the whole batch."""
+    gen = np.random.default_rng(8)
+    eng = SortEngine()
+    for name in ("int32", "float32"):
+        lens = gen.integers(9000, 65537, 64)
+        keys = make_array("random", int(lens.sum()), seed=9, dtype=np.dtype(name))
+        segs = np.split(keys, np.cumsum(lens)[:-1])
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.sort_segments(keys, lens)
+            walls.append(time.perf_counter() - t0)
+            for o, s in zip(out, segs):
+                if not np.array_equal(o, np.sort(s)):
+                    fail(f"sort_segments {name} 64 x 9,000-65,536 differs from np.sort")
+        wall = statistics.median(walls)
+        r = eng.last_report
+        print(
+            f"sort_segments {name} 64 x 9,000-65,536: method={r['plan'].method} "
+            f"capacity={r['plan'].capacity} retries={r['overflow_retries']} "
+            f"wall={wall * 1e3:.2f} ms ({keys.size / wall:.4g} keys/s)"
+        )
+        t0 = time.perf_counter()
+        eng.plan_segments(keys, lens)
+        print(f"  of which plan_segments alone (packing and host stats): {(time.perf_counter() - t0) * 1e3:.2f} ms")
+        got = request_launches(
+            f"sort_segments {name} 64 x 9,000-65,536", lambda: eng.sort_segments(keys, lens)
+        )
+        runs = 1 + eng.last_report["overflow_retries"]
+        if got["bucket_count_rank"] != runs or got["sort_tile"] != runs or got["batched_row_sort"]:
+            fail("long segments did not share one count/rank and one tile sort launch per run")
+        if name == "int32":
+            profile_request(f"sort_segments {name} 64 x 9,000-65,536", lambda: eng.sort_segments(keys, lens))
 
 
 def main() -> None:
@@ -426,6 +495,8 @@ def main() -> None:
         fail("batched_row_sort never launched on the sort_segments path")
     if seg_counts["sort_tile"] or seg_counts["merge_tiles"]:
         fail("sort_segments rows went through the tile kernels, not the row kernel")
+
+    long_segments()
 
     launches = {**sort_counts, "batched_row_sort": seg_counts["batched_row_sort"]}
     kernels = []

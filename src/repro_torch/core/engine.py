@@ -547,28 +547,22 @@ def choose_plan(
 _U32 = (1 << 32) - 1
 
 
-def _udiv64(d: torch.Tensor, width: int) -> torch.Tensor:
-    """Unsigned 64-bit ``d // width`` on int64 bit patterns, exactly.
+def _udiv64_long(d: torch.Tensor, width) -> torch.Tensor:
+    # long division over the two 32-bit halves; exact for width < 2**31
+    hi = (d >> 32) & _U32
+    lo = d & _U32
+    q_hi = torch.div(hi, width, rounding_mode="floor")
+    r_hi = hi - q_hi * width
+    q_lo = torch.div((r_hi << 32) | lo, width, rounding_mode="floor")
+    return (q_hi << 32) + q_lo
 
-    torch has no uint64 arithmetic.  Below 2**31 the divisor takes a long
-    division over the two 32-bit halves (every intermediate fits int64);
-    from 2**31 up (and below 2**61, which ``P ≥ 8`` guarantees) the
-    quotient is under 2**33, so a float64 estimate is off by at most a few
-    and an integer remainder check, in wrapping int64 arithmetic, corrects
-    it.
-    """
-    if width < (1 << 31):
-        hi = (d >> 32) & _U32
-        lo = d & _U32
-        q_hi = torch.div(hi, width, rounding_mode="floor")
-        r_hi = hi - q_hi * width
-        q_lo = torch.div((r_hi << 32) | lo, width, rounding_mode="floor")
-        return (q_hi << 32) + q_lo
-    if width >= (1 << 61):
-        raise ValueError(f"bucket width {width} needs at least 8 buckets")
+
+def _udiv64_float(d: torch.Tensor, width) -> torch.Tensor:
+    # float64 estimate corrected by an integer remainder check; exact for
+    # 2**31 <= width < 2**61
     hi = ((d >> 32) & _U32).to(torch.float64)
     lo = (d & _U32).to(torch.float64)
-    q = torch.floor((hi * 4294967296.0 + lo) / float(width)).to(torch.int64)
+    q = torch.floor((hi * 4294967296.0 + lo) / width.to(torch.float64)).to(torch.int64)
     r = d - q * width  # the true remainder is within a few widths of [0, width)
     for _ in range(3):
         low = r < 0
@@ -581,33 +575,55 @@ def _udiv64(d: torch.Tensor, width: int) -> torch.Tensor:
     return q
 
 
+def _udiv64(d: torch.Tensor, width) -> torch.Tensor:
+    """Unsigned 64-bit ``d // width`` on int64 bit patterns, exactly.
+
+    torch has no uint64 arithmetic.  Below 2**31 the divisor takes a long
+    division over the two 32-bit halves (every intermediate fits int64);
+    from 2**31 up (and below 2**61, which ``P ≥ 8`` guarantees) the
+    quotient is under 2**33, so a float64 estimate is off by at most a few
+    and an integer remainder check, in wrapping int64 arithmetic, corrects
+    it.  ``width`` is an int, or an int64 tensor that broadcasts against
+    ``d`` (one width per row); each width takes the rule that fits it.
+    """
+    if not isinstance(width, torch.Tensor):
+        if width >= (1 << 61):
+            raise ValueError(f"bucket width {width} needs at least 8 buckets")
+        width = torch.tensor(width, dtype=torch.int64, device=d.device)
+    small = width < (1 << 31)
+    return torch.where(
+        small,
+        _udiv64_long(d, torch.where(small, width, 1)),
+        _udiv64_float(d, torch.where(small, 1 << 31, width)),
+    )
+
+
 def _paper_ids(x_pad: torch.Tensor, valid: torch.Tensor, *, P: int) -> torch.Tensor:
     """Exact equal-width §3.1 bucket ids of the valid prefix, int32.
 
-    The reference works in uint32/uint64 with wraparound:
-    ``width = (hi - lo) // P + 1`` and ``ids = (x - lo) // width`` on
-    unsigned bit patterns, then a wrapping cast to int32 and a clip.  Here
-    the span and width are host integers (one sync for min and max), and
-    the per-key difference is taken modulo 2**32 in int64 for keys up to 32
-    bits, or as a wrapping int64 difference divided by :func:`_udiv64` for
-    64-bit keys — the same numbers at every position.  The numpy twin is
+    Works along the last axis: ``x_pad`` is one ``(n,)`` buffer or a
+    ``(B, n)`` batch, each row with its own span.  The reference works in
+    uint32/uint64 with wraparound: ``width = (hi - lo) // P + 1`` and
+    ``ids = (x - lo) // width`` on unsigned bit patterns, then a wrapping
+    cast to int32 and a clip.  Here the per-key difference is taken modulo
+    2**32 in int64 for keys up to 32 bits, or as a wrapping int64
+    difference divided by :func:`_udiv64` for 64-bit keys — the same
+    numbers at every position, with no sync to the host.  The numpy twin is
     ``workloads.host_bucket_ids``; the two agree bit for bit.
     """
     dtype = x_pad.dtype
     fill = torch.tensor(partition.max_sentinel(dtype), dtype=dtype, device=x_pad.device)
     low = torch.tensor(partition.min_sentinel(dtype), dtype=dtype, device=x_pad.device)
-    lo = torch.where(valid, x_pad, fill).min()
-    hi = torch.where(valid, x_pad, low).max()
+    lo = torch.where(valid, x_pad, fill).amin(dim=-1, keepdim=True)
+    hi = torch.where(valid, x_pad, low).amax(dim=-1, keepdim=True)
     if not dtype.is_floating_point:
-        bits = 64 if dtype.itemsize == 8 else 32
-        lo_i, hi_i = int(lo), int(hi)
-        width = ((hi_i - lo_i) % (1 << bits)) // P + 1
-        if bits == 32:
-            q = torch.div(
-                (x_pad.to(torch.int64) - lo_i) & _U32, width, rounding_mode="floor"
-            )
+        if dtype.itemsize == 8:
+            width = _udiv64(hi - lo, P) + 1
+            q = _udiv64(x_pad - lo, width)
         else:
-            q = _udiv64(x_pad - lo_i, width)
+            lo = lo.to(torch.int64)
+            width = torch.div((hi.to(torch.int64) - lo) & _U32, P, rounding_mode="floor") + 1
+            q = torch.div((x_pad.to(torch.int64) - lo) & _U32, width, rounding_mode="floor")
         return torch.clamp(q.to(torch.int32), 0, P - 1)  # pad tail may wrap below lo
     ftype = torch.float64 if dtype == torch.float64 else torch.float32
     lo_f = lo.to(ftype)
@@ -620,7 +636,7 @@ def _paper_ids(x_pad: torch.Tensor, valid: torch.Tensor, *, P: int) -> torch.Ten
 
 def _sim_sort_padded(
     x_pad: torch.Tensor,
-    n_valid: int,
+    lens: np.ndarray,
     *,
     P: int,
     capacity: int,
@@ -628,38 +644,44 @@ def _sim_sort_padded(
     sample_size: int,
     local_sort: Callable[[torch.Tensor], torch.Tensor],
 ):
-    """Sort the valid prefix of a padded buffer on P simulated processors.
+    """Sort the valid prefix of every row of a padded ``(B, n)`` batch on P
+    simulated processors each.
 
-    Invalid tail elements route to an overflow row (bucket P) that is
-    dropped — they never pollute counts or splitters.  Returns
-    ``(out, counts)`` with the sorted valid prefix in ``out[:n_valid]``.
+    ``lens`` (host, ``(B,)``) holds each row's valid length.  Invalid tail
+    elements route to an overflow row (bucket P) that is dropped — they
+    never pollute counts or splitters.  Every row goes through the same
+    launches: one count/rank and scatter for up to ``ops.MAX_BUCKETS //
+    (P + 1)`` rows, one ``local_sort`` over all ``B·P`` bucket rows, one
+    gather.  Returns ``(out, counts)``, ``(B, n)`` and ``(B, P)``, with row
+    ``i``'s sorted valid prefix in ``out[i, :lens[i]]``.
     """
-    n_pad = x_pad.shape[0]
+    rows, n_pad = x_pad.shape
     dtype = x_pad.dtype
     device = x_pad.device
     fill = partition.max_sentinel(dtype)
-    valid = torch.arange(n_pad, device=device) < n_valid
+    lens_cpu = torch.from_numpy(np.asarray(lens, dtype=np.int64))
+    valid = torch.arange(n_pad, device=device) < lens_cpu.to(device)[:, None]
     if method == "paper":
         ids = _paper_ids(x_pad, valid, P=P)
     elif method == "sampled":
         s = int(min(n_pad, sample_size))
         # The reference divides n_valid by s in float32; float64 would pick
         # other sample positions at some n.
-        step = torch.tensor(n_valid, dtype=torch.float32) / torch.tensor(s, dtype=torch.float32)
-        idx = (torch.arange(s, dtype=torch.float32) * step).to(torch.int32)
-        idx = torch.clamp(idx, 0, n_valid - 1).to(device)
-        sample = torch.sort(x_pad[idx]).values
-        splitters = sample[torch.from_numpy((np.arange(1, P) * s) // P).to(device)]
-        ids = partition.splitter_bucket_ids(x_pad, splitters)
+        step = lens_cpu.to(torch.float32) / torch.tensor(s, dtype=torch.float32)
+        idx = (torch.arange(s, dtype=torch.float32) * step[:, None]).to(torch.int64)
+        idx = torch.minimum(idx, lens_cpu[:, None] - 1).clamp_min(0).to(device)
+        sample = torch.sort(torch.gather(x_pad, 1, idx), dim=-1).values
+        pos = torch.from_numpy((np.arange(1, P) * s) // P).to(device)
+        ids = partition.splitter_bucket_ids(x_pad, sample[:, pos].contiguous())
     else:
         raise ValueError(f"unknown sim method {method!r}")
     ids = torch.where(valid, ids, P)  # row P = drop row for the pad tail
     fill_t = torch.tensor(fill, dtype=dtype, device=device)
-    buckets, counts = partition.scatter_to_buckets(
+    buckets, counts = partition.scatter_rows_to_buckets(
         torch.where(valid, x_pad, fill_t), ids, P + 1, capacity, fill_value=fill
     )
-    buckets, counts = buckets[:P], counts[:P]
-    buckets = local_sort(buckets)
+    buckets, counts = buckets[:, :P], counts[:, :P]
+    buckets = local_sort(buckets.reshape(rows * P, capacity)).view(rows, P, capacity)
     out = partition.unscatter(buckets, counts, n_pad)
     return out, counts
 
@@ -699,7 +721,7 @@ class SortEngine:
     sample_size:     stats sample size (and sampled-splitter sample cap).
     margin:          capacity safety margin.
     local_sort:      per-bucket sorter for the sim path: sorts the last axis
-                     of the (P, capacity) buffer (default
+                     of the (rows·P, capacity) bucket buffer (default
                      ``ops.make_local_sort()``, the hand-written kernels).
     device:          ``None`` or ``"cuda"`` runs on the card and raises when
                      there is none; ``"cpu"`` runs the kernels' plain
@@ -779,26 +801,18 @@ class SortEngine:
                     out = batched_kernels.batched_row_sort(x_pad, lens_t, method=kernel_method)
                     return out, lens_t[:, None]
         else:
-            def one(x_pad, n_valid):
+            # ``sort`` runs one row, ``sort_segments`` a batch of rows: the
+            # same launches either way.
+            def fn(x_pad, lens):
                 return _sim_sort_padded(
                     x_pad,
-                    n_valid,
+                    lens,
                     P=self.topo.total_procs,
                     capacity=capacity,
                     method=method,
                     sample_size=min(self.sample_size, padded_n),
                     local_sort=self.local_sort,
                 )
-
-            if batched:
-                def fn(x_pad, lens):
-                    rows = [one(x_pad[i], int(lens[i])) for i in range(x_pad.shape[0])]
-                    return (
-                        torch.stack([r[0] for r in rows]),
-                        torch.stack([r[1] for r in rows]),
-                    )
-            else:
-                fn = one
         self._fn_cache[key] = fn
         return fn
 
@@ -843,7 +857,7 @@ class SortEngine:
         retries = 0
         while True:
             fn = self._get_sim_fn(padded_n, capacity, plan.method, x_np.dtype, False)
-            out, counts = fn(xt, n)
+            out, counts = fn(xt[None], np.array([n]))
             got = int(counts.sum())
             if got == n:
                 break
@@ -857,9 +871,9 @@ class SortEngine:
         self.last_report = {
             "plan": plan, "n": n, "stats": stats, "capacity_used": capacity,
             "counts_sum": got, "overflow_retries": retries,
-            "counts": counts.cpu().numpy(),
+            "counts": counts[0].cpu().numpy(),
         }
-        return dtypes.to_numpy(out[:n], x_np.dtype)
+        return dtypes.to_numpy(out[0, :n], x_np.dtype)
 
     # --------------------------------------------------------------- batched
     def plan_segments(self, keys, seg_lens) -> SortPlan:

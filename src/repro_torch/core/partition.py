@@ -163,21 +163,56 @@ def scatter_to_buckets(
     return out[:-1].view(num_buckets, capacity), counts
 
 
+def scatter_rows_to_buckets(
+    x: torch.Tensor,
+    bucket_ids: torch.Tensor,
+    num_buckets: int,
+    capacity: int,
+    *,
+    fill_value=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scatter_to_buckets` of every row of a ``(R, n)`` batch.
+
+    Returns ``(R, num_buckets, capacity)`` buckets and ``(R, num_buckets)``
+    counts.  Row ``r``'s ids are offset by ``r·num_buckets`` so one
+    count/rank launch serves many rows; a launch takes at most
+    ``ops.MAX_BUCKETS`` buckets, so the rows go in groups of that many.
+    """
+    rows, n = x.shape
+    per = max(1, ops.MAX_BUCKETS // num_buckets)
+    offset = (torch.arange(rows, device=x.device, dtype=torch.int32) % per) * num_buckets
+    ids = bucket_ids.to(torch.int32) + offset[:, None]
+    parts = [
+        scatter_to_buckets(
+            x[g : g + per], ids[g : g + per].reshape(-1),
+            min(per, rows - g) * num_buckets, capacity, fill_value=fill_value,
+        )
+        for g in range(0, rows, per)
+    ]
+    buckets = torch.cat([b for b, _ in parts]).view(rows, num_buckets, capacity)
+    counts = torch.cat([c for _, c in parts]).view(rows, num_buckets)
+    return buckets, counts
+
+
 def unscatter(buckets: torch.Tensor, counts: torch.Tensor, total: int) -> torch.Tensor:
     """Concatenate bucket prefixes (bucket order) into a flat array of ``total``.
 
     Buckets are range-partitioned and each is sorted, so the result is
-    globally sorted — §3.1's merge-free gather.
+    globally sorted — §3.1's merge-free gather.  ``(..., B, capacity)``
+    buckets with ``(..., B)`` counts gather every leading row at once into
+    ``(..., total)``.
     """
-    num_buckets, capacity = buckets.shape
-    counts = counts.to(torch.int64)
-    offsets = torch.cumsum(counts, dim=0) - counts
-    pos_in_bucket = torch.arange(capacity, device=buckets.device)[None, :]
-    valid = pos_in_bucket < counts[:, None]
-    dest = torch.where(valid, offsets[:, None] + pos_in_bucket, total)
-    out = torch.zeros(total + 1, dtype=buckets.dtype, device=buckets.device)
+    *lead, num_buckets, capacity = buckets.shape
+    counts = counts.reshape(-1, num_buckets).to(torch.int64)
+    rows = counts.shape[0]
+    offsets = torch.cumsum(counts, dim=-1) - counts
+    offsets += torch.arange(rows, device=buckets.device)[:, None] * total
+    pos_in_bucket = torch.arange(capacity, device=buckets.device)
+    valid = pos_in_bucket < counts[..., None]
+    dest = torch.where(valid, offsets[..., None] + pos_in_bucket, rows * total)
+    out = torch.zeros(rows * total + 1, dtype=buckets.dtype, device=buckets.device)
     out[dest.reshape(-1)] = buckets.reshape(-1)
-    return out[:total]
+    return out[:-1].view(*lead, total)
 
 
 # Exact host-side twin of the engine's integer equal-width rule.

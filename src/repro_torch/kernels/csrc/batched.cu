@@ -7,8 +7,10 @@
 // Paeth's NICE 2-op compare-exchange (integer keys only).
 //
 // What bounds it on an H100: a (64, 8192) int32 batch is 2 MiB each way,
-// 1.3 us at 3.35 TB/s; its 91 stages of 4096 compare-exchanges per row
-// are 4.8e7 operations, 0.7 us at 67 Tops/s.  Rows this short fit one
+// 1.3 us at 3.35 TB/s; the comparisons a sort of its rows needs (about
+// 8192 * 13 a row, 6.8e6) take 0.1 us at 67 Tops/s, so bytes bound it (the
+// network's own 91 stages of 4096 compare-exchanges a row, 4.8e7, would
+// take 0.7 us).  Rows this short fit one
 // block's shared memory whole (8192 keys of 8 bytes are 64 KiB, allowed
 // above the default 48 KiB with cudaFuncSetAttribute), so one block owns
 // one row: it reads its own length (Hopper has no scalar prefetch),

@@ -7,11 +7,13 @@
 //                      tiles into the (lo, hi) halves of their union by the
 //                      merge network on a ++ reverse(b).
 //
-// What bounds it on an H100: the network makes log2(n)(log2(n)+1)/2
-// passes over the keys.  Read once and written once, a (36, 2^20) int32
-// batch is 302 MB, 0.09 ms at 3.35 TB/s; its 3.96e9 compare-exchanges
-// (two operations each) are 0.12 ms at 67 Tops/s, so the operations bound
-// it, provided the passes stay on chip.  The TPU kernel kept a whole 2 MiB
+// What bounds it on an H100: a sort must read the keys once and write
+// them once; for a (36, 2^20) int32 batch that is 302 MB, 0.09 ms at
+// 3.35 TB/s, while the comparisons a sort needs (about n log2 n, 7.5e8)
+// take 0.011 ms at 67 Tops/s, so bytes bound it.  The network does more
+// than a sort needs: log2(n)(log2(n)+1)/2 passes over the keys, 3.96e9
+// compare-exchanges, which stay near that bound only while the passes stay
+// on chip.  The TPU kernel kept a whole 2 MiB
 // tile in VMEM; one block's shared memory holds far less.  So a block
 // sorts a 32 KiB chunk in shared memory, running every stage whose
 // distance is below the chunk; each longer distance costs one pass

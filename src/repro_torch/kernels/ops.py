@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import dtypes
 from repro_torch.kernels import bitonic
-from repro_torch.kernels.partition_kernel import bucket_count_rank as _bcr
+from repro_torch.kernels.partition_kernel import MAX_BUCKETS, bucket_count_rank as _bcr
 
 # The reference sized its tile (2**19 keys) for TPU VMEM.  The port keeps
 # the same tile, so the multi-tile merge runs at the same request sizes:

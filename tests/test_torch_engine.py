@@ -156,6 +156,33 @@ def test_long_segments_take_the_bucket_path(jax_engine, port, rng):
         assert np.array_equal(o, np.sort(s))
 
 
+@pytest.mark.parametrize("method", ("paper", "sampled"))
+def test_long_segments_share_each_launch(method, jax_engine, port, rng, monkeypatch):
+    # rows above the row kernel's reach go through one count/rank and
+    # scatter, one local sort and one gather for the whole batch
+    segs = [make_array("random", n, seed=60 + n) for n in (9000, 16384, 0)]
+    lens = [s.size for s in segs]
+    keys = np.concatenate(segs)
+    plan = SortPlan("sim", method, 1024, 16384, "forced")
+    calls = {"bcr": 0, "local_sort": 0}
+    bcr = engine.partition.ops.bucket_count_rank
+    def count_bcr(*a, **kw):
+        calls["bcr"] += 1
+        return bcr(*a, **kw)
+    def count_sort(x):
+        calls["local_sort"] += 1
+        return engine.ops.local_sort(x)
+    monkeypatch.setattr(engine.partition.ops, "bucket_count_rank", count_bcr)
+    port.local_sort = count_sort
+    got = port.sort_segments(keys, lens, plan=plan, return_padded=True)
+    assert calls == {"bcr": 1, "local_sort": 1}
+    want = np.asarray(jax_engine.sort_segments(keys, lens, plan=plan, return_padded=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert port.last_report["overflow_retries"] == jax_engine.last_report["overflow_retries"]
+    for row, s in zip(got.numpy(), segs):
+        assert np.array_equal(row[: s.size], np.sort(s))
+
+
 def test_unforced_backend_races_only_the_row_kernel(port, monkeypatch, rng):
     monkeypatch.delenv("REPRO_ROW_BACKEND", raising=False)
     for dtype, methods in ((np.int32, ("bitonic_pallas", "bitonic2op")), (np.float32, ("bitonic_pallas",))):

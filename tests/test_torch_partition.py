@@ -64,6 +64,59 @@ def test_udiv64_matches_python_integers(rng):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", NARROW + (np.int64,), ids=lambda d: np.dtype(d).name)
+def test_paper_ids_of_a_batch_are_each_rows_own(dtype):
+    # every row of a (B, n) batch takes its own span, as if alone
+    n_pad, P = 1024, 36
+    lens = np.array([1024, 700, 1, 0, 513])
+    x = np.zeros((lens.size, n_pad), dtype)
+    for i, n in enumerate(lens):
+        x[i, :n] = distributions.make_array(("random", "local", "dupes")[i % 3], int(n), seed=40 + i, dtype=dtype)
+    valid = torch.arange(n_pad)[None, :] < torch.from_numpy(lens)[:, None]
+    got = engine._paper_ids(_t(x), valid, P=P).numpy()
+    for i in range(lens.size):
+        want = engine._paper_ids(_t(x[i]), valid[i], P=P).numpy()
+        np.testing.assert_array_equal(got[i], want)
+        np.testing.assert_array_equal(got[i, : lens[i]], workloads.host_bucket_ids(x[i, : lens[i]], P))
+
+
+def test_udiv64_takes_one_width_per_row(rng):
+    d = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, (6, 500), dtype=np.int64, endpoint=True)
+    widths = [1, 37, (1 << 31) - 1, 1 << 31, (1 << 40) + 7, (1 << 60) + 3]
+    got = engine._udiv64(torch.from_numpy(d), torch.tensor(widths)[:, None]).numpy()
+    for row, width in zip(d, widths):
+        want = np.array([(int(v) % (1 << 64)) // width for v in row], dtype=np.uint64).view(np.int64)
+        np.testing.assert_array_equal(got[widths.index(width)], want)
+
+
+@pytest.mark.parametrize("capacity", (48, 8), ids=("fits", "overflows"))
+def test_scatter_rows_groups_rows_per_launch(capacity, rng, monkeypatch):
+    # 1500 buckets a row: a launch takes two rows, so five rows take three
+    rows, n, nb = 5, 1000, 1500
+    x = rng.integers(-1000, 1000, (rows, n)).astype(np.int32)
+    ids = rng.integers(0, nb, (rows, n)).astype(np.int32)
+    calls = []
+    bcr = partition.ops.bucket_count_rank
+    monkeypatch.setattr(partition.ops, "bucket_count_rank", lambda i, b, **kw: calls.append(b) or bcr(i, b, **kw))
+    tb, tc = partition.scatter_rows_to_buckets(torch.from_numpy(x), torch.from_numpy(ids), nb, capacity)
+    assert calls == [3000, 3000, 1500]
+    assert tb.shape == (rows, nb, capacity) and tc.shape == (rows, nb)
+    for i in range(rows):  # each row as if alone (the one-row scatter is held to the reference above)
+        b, c = partition.scatter_to_buckets(torch.from_numpy(x[i]), torch.from_numpy(ids[i]), nb, capacity)
+        np.testing.assert_array_equal(tb[i].numpy(), b.numpy())
+        np.testing.assert_array_equal(tc[i].numpy(), c.numpy())
+
+
+def test_unscatter_gathers_every_row_at_once(rng):
+    rows, P, capacity, total = 4, 9, 40, 300
+    buckets = torch.from_numpy(np.sort(rng.integers(0, 99, (rows, P, capacity)).astype(np.int32), axis=-1))
+    counts = torch.from_numpy(rng.integers(0, capacity + 1, (rows, P)).astype(np.int32))
+    got = partition.unscatter(buckets, counts, total)
+    assert got.shape == (rows, total)
+    for i in range(rows):  # each row as if alone (the one-row gather is held to the reference above)
+        np.testing.assert_array_equal(got[i].numpy(), partition.unscatter(buckets[i], counts[i], total).numpy())
+
+
 @pytest.mark.parametrize("capacity", (64, 24), ids=("fits", "overflows"))
 @pytest.mark.parametrize("dtype", (np.int32, np.float32), ids=lambda d: np.dtype(d).name)
 def test_scatter_and_unscatter_match_reference(dtype, capacity, rng):
