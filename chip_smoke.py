@@ -18,9 +18,19 @@ no result line):
 4. ``SortEngine.sort_segments`` on 64 segments of 1,000-8,192 keys with
    each row backend, against ``np.sort`` per row, then 64 segments of
    9,000-65,536 keys, which take the bucket path;
-5. a ``kernels`` JSON line with each kernel's launches on the main path
-   (phase 3 for the sort kernels, the short segments for the row kernel);
-   the launches of single requests are printed on their own lines.
+5. the pairs path: ``SortEngine.sort_pairs`` with a flat payload at a
+   serving batch (256 request lengths, ``ServeEngine.order_by_length``'s
+   call) and at 2^19 pairs, ``argsort_keys`` at 2^19 int32 and int64
+   keys, and a three-leaf pytree payload at 4,096 and 2^19 keys, each
+   against numpy; a profile of one ``argsort_keys`` at 2^19;
+6. the workloads: ``top_k`` at 15,728,640 int32 keys with k = n/2 (the
+   sim path) and k = 1,000 (the host head), and ``merge_sorted`` of 2^20
+   new keys into a sorted 2^22 buffer, against ``np.sort``;
+7. a ``kernels`` JSON line with each kernel's launches on its path
+   (phase 3 for the sort kernels, the short segments for the row kernel,
+   phase 5 for the tagged pair kernel; the untagged pair kernel and the
+   pair row kernel have no caller on any path and are checked in phase 2
+   only); the launches of single requests are printed on their own lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of the JAX package ``repro``.
@@ -49,10 +59,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import OHHCTopology, SortEngine, SortPlan  # noqa: E402
 from repro_torch.data import ALL_DISTRIBUTIONS, make_array  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
+    KERNELS,
     _build,
     batched,
     bitonic,
     launch_counts,
+    ops,
     partition_kernel,
     ref,
     reset_launches,
@@ -287,12 +299,128 @@ def kernel_checks() -> dict:
         ms=timings["bitonic"], plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
         shape="(64, 8192) int32", extra=f"bitonic2op {timings['bitonic2op']:.4f} ms",
     )
+    rows.update(pair_kernel_checks(gen))
     for name, r in rows.items():
         print(
             f"kernel {name} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}), plain {r['plain_ms']:.3f} ms, library {r['library_ms']}, "
             f"max_abs_err {r['max_abs_err']} {r.get('extra', '')}"
         )
+    return rows
+
+
+def payload(shape, dtype: torch.dtype, gen: np.random.Generator) -> torch.Tensor:
+    """Random payload bits of ``dtype`` (any width 1, 2, 4 or 8 bytes)."""
+    bits = bitonic._BITS[torch.empty((), dtype=dtype).element_size()]
+    raw = torch.from_numpy(gen.integers(-(2**62), 2**62, shape)).to(bits)
+    return raw.view(dtype).to(DEV)
+
+
+def same_pairs(got, want, what: str) -> float:
+    """Keys and payloads of a pair sort, bit for bit."""
+    err = same(got[0], want[0], f"{what} keys")
+    bits = bitonic._BITS[got[1].element_size()]
+    same(got[1].view(bits), want[1].view(bits), f"{what} payloads")
+    return err
+
+
+def pair_kernel_checks(gen: np.random.Generator) -> dict:
+    rows = {}
+    n = 1 << 19
+    # K5 at argsort_keys' full width: (1, 2^19) int32 keys with an arange
+    # payload and every tag 0 (n_valid = n).
+    k = random_keys((1, n), torch.int32, gen)
+    idx = torch.arange(n, dtype=torch.int32, device=DEV)[None]
+    tags = torch.zeros((1, n), dtype=torch.uint8, device=DEV)
+    got = bitonic.sort_pairs_tile_tagged(k, tags, idx)
+    err = same_pairs(got, bitonic.sort_pairs_tile_tagged_plain(k, tags, idx), "sort_pairs_tile_tagged 2^19")
+    if not torch.equal(got[0], torch.sort(k).values) or not torch.equal(k[0, got[1][0].long()], got[0][0]):
+        fail("sort_pairs_tile_tagged: keys are not torch.sort's or payloads left their keys")
+    # every key dtype at 4,096 with sentinel-equal keys and a pad tail,
+    # every payload width
+    for name in DTYPES:
+        if name == "uint32":
+            continue  # reaches the kernels as int32 (repro_torch.dtypes)
+        dt = TORCH_KEY[name]
+        for vdt in (torch.bool, torch.float16, torch.float32, torch.float64):
+            y = random_keys((4, 4096), dt, gen)
+            y[:, ::5] = float("inf") if dt.is_floating_point else torch.iinfo(dt).max
+            t = (torch.arange(4096, device=DEV) >= 4000).to(torch.uint8).expand(4, 4096).contiguous()
+            v = payload((4, 4096), vdt, gen)
+            err = max(err, same_pairs(
+                bitonic.sort_pairs_tile_tagged(y, t, v), bitonic.sort_pairs_tile_tagged_plain(y, t, v),
+                f"sort_pairs_tile_tagged {name}/{vdt}",
+            ))
+    ms = cuda_ms(lambda: bitonic.sort_pairs_tile_tagged(k, tags, idx))
+    plain = cuda_ms(lambda: bitonic.sort_pairs_tile_tagged_plain(k, tags, idx), reps=3)
+    lib = cuda_ms(lambda: torch.sort(k, dim=-1))
+    b, by = bound(2 * n * (4 + 4) + n, sort_comparisons([n]))
+    rows["sort_pairs_tile_tagged"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
+        replaces="src/repro/kernels/bitonic.py:212", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        shape="(1, 2^19) int32/int32",
+    )
+
+    # K6 at (64, 8192) int32/int32, random lengths, garbage in the pads.
+    x = random_keys((64, 8192), torch.int32, gen)
+    xv = random_keys((64, 8192), torch.int32, gen)
+    lens = torch.from_numpy(gen.integers(0, 8193, 64).astype(np.int32)).to(DEV)
+    got = batched.batched_row_sort_pairs(x, xv, lens)
+    err = same_pairs(got, batched.batched_row_sort_pairs_plain(x, xv, lens), "batched_row_sort_pairs (64, 8192)")
+    hk, hv = got[0].cpu().numpy(), got[1].cpu().numpy()
+    xk, xvh = x.cpu().numpy(), xv.cpu().numpy()
+    for i, ln in enumerate(lens.cpu().tolist()):
+        order = np.argsort(xk[i, :ln], kind="stable")
+        if not np.array_equal(hk[i, :ln], xk[i, order]) or (hv[i, ln:] != 0).any():
+            fail(f"batched_row_sort_pairs row {i} is not np.sort or its pad payloads are not 0")
+        if not np.array_equal(np.sort(hv[i, :ln]), np.sort(xvh[i, :ln])):
+            fail(f"batched_row_sort_pairs row {i} lost payloads")
+    # one row past one block's shared memory: the fill, then K5's passes
+    long_k = random_keys((2, 1 << 15), torch.int32, gen)
+    long_v = payload((2, 1 << 15), torch.float64, gen)
+    long_lens = torch.tensor([30_000, 1 << 15], dtype=torch.int32, device=DEV)
+    before = launch_counts()["sort_pairs_tile_tagged"]
+    err = max(err, same_pairs(
+        batched.batched_row_sort_pairs(long_k, long_v, long_lens),
+        batched.batched_row_sort_pairs_plain(long_k, long_v, long_lens),
+        "batched_row_sort_pairs (2, 2^15) int32/float64",
+    ))
+    if launch_counts()["sort_pairs_tile_tagged"] != before + 1:
+        fail("a row past one block did not go through the multi-pass pair kernel")
+    ms = cuda_ms(lambda: batched.batched_row_sort_pairs(x, xv, lens))
+    # the event time above includes the wrapper's host work; this is the kernel's own
+    profile_request("batched_row_sort_pairs (64, 8192)", lambda: batched.batched_row_sort_pairs(x, xv, lens))
+    plain = cuda_ms(lambda: batched.batched_row_sort_pairs_plain(x, xv, lens), reps=3)
+    lib = cuda_ms(lambda: torch.sort(x, dim=-1))
+    valid = int(lens.sum())
+    b, by = bound((valid + x.numel()) * (4 + 4) + 4 * 64, sort_comparisons(lens.cpu().tolist()))
+    rows["batched_row_sort_pairs"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/batched.cu",
+        replaces="src/repro/kernels/batched.py:181", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        shape="(64, 8192) int32/int32",
+    )
+
+    # K7 at 2^19: the untagged pair sort.
+    got = bitonic.sort_pairs_tile(k, idx)
+    err = same_pairs(got, bitonic.sort_pairs_tile_plain(k, idx), "sort_pairs_tile 2^19")
+    if not torch.equal(got[0], torch.sort(k).values) or not torch.equal(k[0, got[1][0].long()], got[0][0]):
+        fail("sort_pairs_tile: keys are not torch.sort's or payloads left their keys")
+    for name in ("int8", "int64", "float32"):
+        y = random_keys((4, 4096), TORCH_KEY[name], gen)
+        v = payload((4, 4096), torch.int16, gen)
+        err = max(err, same_pairs(bitonic.sort_pairs_tile(y, v), bitonic.sort_pairs_tile_plain(y, v), f"sort_pairs_tile {name}"))
+    ms = cuda_ms(lambda: bitonic.sort_pairs_tile(k, idx))
+    plain = cuda_ms(lambda: bitonic.sort_pairs_tile_plain(k, idx), reps=3)
+    lib = cuda_ms(lambda: torch.sort(k, dim=-1))
+    b, by = bound(2 * n * (4 + 4), sort_comparisons([n]))
+    rows["sort_pairs_tile"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
+        replaces="src/repro/kernels/bitonic.py:195", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        shape="(1, 2^19) int32/int32",
+    )
     return rows
 
 
@@ -475,6 +603,134 @@ def long_segments() -> None:
             profile_request(f"sort_segments {name} 64 x 9,000-65,536", lambda: eng.sort_segments(keys, lens))
 
 
+# ----------------------------------------------------------------- phase 5
+def timed(label: str, fn, check, reps: int = 3):
+    """Warm median wall time of ``fn`` (the first call outside the clock),
+    each result checked by ``check``."""
+    check(fn())
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(out)
+    wall = statistics.median(walls)
+    print(f"{label}: wall={wall * 1e3:.3f} ms")
+    return wall
+
+
+def held_to_numpy(keys: np.ndarray, ks: np.ndarray, perm: np.ndarray, what: str, leaves=()) -> None:
+    """Keys equal np.sort, keys[perm] equals them, perm is a permutation,
+    and every payload leaf stays with its key."""
+    if not np.array_equal(ks, np.sort(keys)) or not np.array_equal(keys[perm], ks):
+        fail(f"{what}: keys differ from np.sort or keys[perm] differs from them")
+    if not np.array_equal(np.sort(perm), np.arange(keys.size)):
+        fail(f"{what}: the permutation is not one")
+    for src, got in leaves:
+        if np.asarray(got).tobytes() != src[perm].tobytes():
+            fail(f"{what}: a payload leaf left its key")
+
+
+def pairs_path() -> None:
+    eng = SortEngine()
+    gen = np.random.default_rng(11)
+
+    def flat_check(keys, what):
+        def check(out):
+            ks, vs = out
+            held_to_numpy(keys, ks.cpu().numpy(), vs.cpu().numpy().astype(np.int64), what)
+        return check
+
+    # ServeEngine.order_by_length: (prompt length, request index) of a batch
+    lens = gen.integers(1, 4097, 256).astype(np.int32)
+    idx = np.arange(256, dtype=np.int32)
+    timed("sort_pairs flat, 256 request lengths", lambda: eng.sort_pairs(lens, idx), flat_check(lens, "sort_pairs 256"), reps=20)
+    got = request_launches("sort_pairs flat 256", lambda: eng.sort_pairs(lens, idx))
+    if got["sort_pairs_tile_tagged"] != 1 or sum(got.values()) != 1:
+        fail("one flat sort_pairs request did not launch the tagged pair kernel exactly once")
+    n = ops.MAX_TILE
+    keys = make_array("random", n, seed=12)
+    pidx = np.arange(n, dtype=np.int32)
+    timed("sort_pairs flat, 2^19 int32 pairs", lambda: eng.sort_pairs(keys, pidx), flat_check(keys, "sort_pairs 2^19"))
+    for dtype in ("int32", "int64"):
+        if dtype == "int64":
+            x = gen.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, dtype=np.int64, endpoint=True)
+        else:
+            x = keys
+
+        def check(out, x=x, dtype=dtype):
+            held_to_numpy(x, out[0], out[1], f"argsort_keys {dtype} 2^19")
+
+        timed(f"argsort_keys 2^19 {dtype}", lambda x=x: eng.argsort_keys(x), check)
+        if eng.last_report["plan"].path != "sim":
+            fail(f"argsort_keys {dtype} at 2^19 left the pair kernel: {eng.last_report['plan']}")
+        got = request_launches(f"argsort_keys 2^19 {dtype}", lambda x=x: eng.argsort_keys(x))
+        if got["sort_pairs_tile_tagged"] != 1 or sum(got.values()) != 1:
+            fail(f"one argsort_keys {dtype} request did not launch the tagged pair kernel exactly once")
+    profile_request("argsort_keys 2^19 int32", lambda: eng.argsort_keys(keys))
+    for m in (4096, n):
+        k = keys[:m]
+        flat = np.arange(m, dtype=np.int32)
+        tree = {
+            "idx": np.arange(m, dtype=np.int64),
+            "nested": (k.astype(np.float64), (flat % 251).astype(np.int8)),
+        }
+
+        def check(out, k=k, tree=tree, m=m):
+            ks, o = out
+            held_to_numpy(k, ks, o["idx"], f"sort_pairs pytree {m}", [
+                (tree["idx"], o["idx"]), (tree["nested"][0], o["nested"][0]),
+                (tree["nested"][1], o["nested"][1]),
+            ])
+
+        timed(f"sort_pairs pytree of 3 leaves, {m} keys", lambda k=k, tree=tree: eng.sort_pairs(k, tree), check)
+        got = request_launches(f"sort_pairs pytree {m}", lambda k=k, tree=tree: eng.sort_pairs(k, tree))
+        if got["sort_pairs_tile_tagged"] != 1:
+            fail("one pytree sort_pairs request did not launch the tagged pair kernel once")
+
+
+# ----------------------------------------------------------------- phase 6
+def workloads_path() -> None:
+    eng = SortEngine(host_threshold=1 << 25)
+    x = make_array("random", PAPER_MAX_KEYS, seed=13)
+    want = np.sort(x)
+    for k in (PAPER_MAX_KEYS // 2, 1000):
+        def check(out, k=k):
+            if not np.array_equal(out, want[:k]) or out.dtype != x.dtype:
+                fail(f"top_k k={k} differs from np.sort(x)[:k]")
+
+        timed(f"top_k n={PAPER_MAX_KEYS} k={k}", lambda k=k: eng.top_k(x, k), check)
+        r = eng.last_report
+        p = r["plan"]
+        print(
+            f"  plan path={p.path} capacity={r.get('capacity_used', p.capacity)} "
+            f"retries={r['overflow_retries']} skipped={r['skipped_buckets']}; {p.reason}"
+        )
+        want_path = "sim" if k > PAPER_MAX_KEYS // 4 else "host"
+        if p.path != want_path:
+            fail(f"top_k k={k} planned {p.path}, not {want_path}")
+        got = request_launches(f"top_k n={PAPER_MAX_KEYS} k={k}", lambda k=k: eng.top_k(x, k))
+        runs = 1 + eng.last_report["overflow_retries"]
+        if want_path == "sim" and (got["bucket_count_rank"] != runs or got["sort_tile"] != runs):
+            fail("one top_k request on the sim path did not launch K1 and K2 once a run")
+        if want_path == "host" and sum(got.values()):
+            fail("the host head launched a kernel")
+    profile_request(f"top_k n={PAPER_MAX_KEYS} k={PAPER_MAX_KEYS // 2}", lambda: eng.top_k(x, PAPER_MAX_KEYS // 2))
+    buf = np.sort(make_array("random", 1 << 22, seed=14))
+    new = make_array("random", 1 << 20, seed=15)
+    merged = np.sort(np.concatenate([buf, new]))
+
+    def check(out):
+        if not np.array_equal(out, merged):
+            fail("merge_sorted differs from np.sort of the union")
+
+    timed("merge_sorted 2^20 new keys into a sorted 2^22 buffer", lambda: eng.merge_sorted(buf, new), check)
+    print(f"  {eng.last_report['plan'].reason}")
+    request_launches("merge_sorted 2^20 into 2^22", lambda: eng.merge_sorted(buf, new))
+
+
 def main() -> None:
     preflight()
     rows = kernel_checks()
@@ -498,14 +754,39 @@ def main() -> None:
 
     long_segments()
 
-    launches = {**sort_counts, "batched_row_sort": seg_counts["batched_row_sort"]}
+    reset_launches()
+    pairs_path()
+    pair_counts = launch_counts()
+    print("launches on the pairs path (sort_pairs, argsort_keys):", pair_counts)
+    if pair_counts["sort_pairs_tile_tagged"] == 0:
+        fail("sort_pairs_tile_tagged never launched on the pairs path")
+
+    reset_launches()
+    workloads_path()
+    work_counts = launch_counts()
+    print("launches on top_k and merge_sorted:", work_counts)
+
+    launches = {
+        **sort_counts,
+        "batched_row_sort": seg_counts["batched_row_sort"],
+        "sort_pairs_tile_tagged": pair_counts["sort_pairs_tile_tagged"],
+    }
+    # K6 and K7 have no caller in either package: phase 2 checks them, and
+    # every path run above must have launched them no time
+    for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
+        launches[name] = sum(c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts))
+        if launches[name]:
+            fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "
+                 "the kernels line must count that path's launches")
+    if set(rows) != set(KERNELS):
+        fail(f"kernels not checked in phase 2: {sorted(set(KERNELS) - set(rows))}")
     kernels = []
     for name, r in rows.items():
         kernels.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "checked": "phase 2, bit for bit against the plain version",
         })
     print("card:", smi())
     print(json.dumps({"kernels": kernels}))

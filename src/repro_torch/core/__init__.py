@@ -1,8 +1,9 @@
 """Core of the port: the paper's parallel Quick Sort on the OHHC in torch.
 
 Modules mirror ``repro.core``: topology (OHHC graph) and schedule
-(accumulation schedule) are copies; workloads holds the copied host bucket
-rule; partition (Array Division Procedure), ohhc_sort (simulated and host
+(accumulation schedule) are copies; workloads holds the copied host
+arithmetic of the top-k, pairs and merge operations; pytree maps over
+``sort_pairs`` payloads; partition (Array Division Procedure), ohhc_sort (simulated and host
 sorts) and engine (the autotuned dispatch layer) run on torch tensors.
 """
 
@@ -26,7 +27,15 @@ from repro_torch.core.ohhc_sort import (
     ohhc_sort_host,
     ohhc_sort_sim,
 )
-from repro_torch.core.workloads import check_sorted, host_bucket_ids
+from repro_torch.core.workloads import (
+    WORKLOAD_OPS,
+    TopKTooLarge,
+    check_sorted,
+    host_bucket_ids,
+    host_top_k,
+    merge_sorted_arrays,
+    topk_cut,
+)
 from repro_torch.core.engine import (
     BITONIC_METHODS,
     ROW_BACKENDS,
@@ -76,4 +85,9 @@ __all__ = [
     "ohhc_sort_sim",
     "check_sorted",
     "host_bucket_ids",
+    "WORKLOAD_OPS",
+    "TopKTooLarge",
+    "host_top_k",
+    "merge_sorted_arrays",
+    "topk_cut",
 ]

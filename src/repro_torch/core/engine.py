@@ -26,14 +26,27 @@ There is no jit: an *executor* is a Python closure over the static plan
 (pow2 size bucket, capacity, method, dtype), cached like the reference's
 compiled executables, and ``trace_count`` counts executor builds.
 
+The workload operations run on the same kernels.  ``sort_pairs`` takes a
+flat payload through the tagged pair kernel (``ops.local_sort_pairs``,
+one launch a request) and returns tensors on the engine's device; any
+other payload pytree rides ``argsort_keys`` (the same kernel over
+``(key, arange)``) and a host gather of every leaf, returning numpy as
+the reference does.  ``top_k`` is the bucket machinery with the buckets
+past the cut skipped (``_sim_topk_padded``: K1, one ``local_sort`` over
+the kept rows, the gather), or the exact host head; ``merge_sorted``
+sorts the increment through ``sort`` and merges on the host.  64-bit
+integer keys run on the kernels there too; keys of a dtype no kernel
+takes (float64, float16) and argsorts past ``ops.MAX_TILE`` take the
+host stable argsort, a planned route named in ``last_report``.
+
 Not in this slice: the dist path over a mesh and fault scenarios (they
-raise ``NotImplementedError``), ``sort_pairs``, ``top_k`` and
-``merge_sorted``.
+raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 import time
@@ -43,9 +56,10 @@ import numpy as np
 import torch
 
 from repro_torch import dtypes
-from repro_torch.core import partition
+from repro_torch.core import partition, pytree, workloads
 from repro_torch.core.ohhc_sort import ohhc_sort_host
 from repro_torch.core.topology import OHHCTopology
+from repro_torch.core.workloads import TopKTooLarge
 from repro_torch.kernels import batched as batched_kernels
 from repro_torch.kernels import bitonic, ops
 
@@ -686,6 +700,59 @@ def _sim_sort_padded(
     return out, counts
 
 
+def _sim_topk_padded(
+    x_pad: torch.Tensor,
+    n_valid: int,
+    *,
+    P: int,
+    keep: int,
+    capacity: int,
+    local_sort: Callable[[torch.Tensor], torch.Tensor],
+):
+    """Partial range-partition sort: the top-k skip rule on the sim path.
+
+    Every element is bucketed by the paper's equal-width rule, but only
+    the first ``keep`` bucket rows are scattered and sorted — the
+    equal-width rule orders buckets by value range, so every element of a
+    bucket past the cut is ≥ every kept element and the global head of
+    length ``sum(counts[:keep])`` is exact.  Buckets past the cut route to
+    the drop row alongside the pad tail.  The kept rows go through ONE
+    ``local_sort`` (the reference's ``jax.vmap(local_sort)``).
+
+    Returns ``(head, counts, kept_total)``: ``kept_total`` is the
+    *unclipped* kept-element count, so ``sum(counts) < kept_total`` means
+    a kept bucket overflowed ``capacity`` (escalate) while
+    ``kept_total < k`` means the cut was too early (widen ``keep``).
+    """
+    n_pad = x_pad.shape[0]
+    dtype = x_pad.dtype
+    fill = partition.max_sentinel(dtype)
+    fill_t = torch.tensor(fill, dtype=dtype, device=x_pad.device)
+    valid = torch.arange(n_pad, device=x_pad.device) < n_valid
+    ids = _paper_ids(x_pad, valid, P=P)
+    kept = valid & (ids < keep)
+    kept_total = kept.sum()
+    ids = torch.where(kept, ids, keep)  # past-the-cut + pad tail → drop row
+    buckets, counts = partition.scatter_to_buckets(
+        torch.where(kept, x_pad, fill_t), ids, keep + 1, capacity, fill_value=fill
+    )
+    buckets, counts = buckets[:keep], counts[:keep]
+    buckets = local_sort(buckets)
+    head = partition.unscatter(buckets, counts, min(n_pad, keep * capacity))
+    return head, counts, kept_total
+
+
+def _host(x) -> np.ndarray:
+    """A caller's array (numpy, a tensor on any device, a list) as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _ndim(x) -> int:
+    return x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -760,6 +827,11 @@ class SortEngine:
         """Only ``None`` (healthy) is supported in this slice."""
         if scenario is not None:
             raise NotImplementedError(_FAULT_TODO)
+
+    def _apply_fault(self, plan: SortPlan, *, n: int, itemsize: int) -> SortPlan:
+        """The plan under the active fault scenario: with none (the only
+        state this slice supports) the plan itself."""
+        return plan
 
     # -------------------------------------------------------------- planning
     def stats(self, x) -> InputStats:
@@ -1036,3 +1108,337 @@ class SortEngine:
             return [a.copy() for a in arrs]
         flat = np.concatenate(arrs) if len(arrs) > 1 else arrs[0]
         return self.sort_segments(flat, lens)
+
+    # ----------------------------------------------------------------- pairs
+    def sort_pairs(self, keys, vals):
+        """Key/payload sort — flat arrays on the pair kernel, pytrees via
+        a permutation gather.
+
+        A single flat 1-D payload (numpy array or tensor) takes the tagged
+        bitonic pair kernel directly and returns ``(keys, vals)`` as
+        tensors on the engine's device, keys in the caller's dtype (the
+        serving hot path: length-ordering a request batch).  Any other
+        payload pytree (dicts, lists, tuples, ``None``; multi-dim leaves,
+        mixed dtypes) rides :meth:`argsort_keys`: the same kernel sorts
+        ``(key, index)`` once, then every leaf is gathered by the
+        permutation on the host, byte-exact for every leaf dtype.  Returns
+        ``(sorted_keys, same-structure payload)`` as numpy.
+        """
+        if pytree.is_leaf(vals) and _ndim(vals) == 1:
+            return self._sort_pairs_flat(keys, vals)
+        return self._sort_pairs_tree(keys, vals)
+
+    def _sort_pairs_flat(self, keys, vals):
+        """The flat path: one payload array through the tagged pair kernel
+        (``ops.local_sort_pairs`` pads to the shape bucket and tags the
+        valid length, so pad zeros never displace real payloads on
+        dtype-max key ties)."""
+        if isinstance(vals, torch.Tensor):
+            vt = vals.detach().reshape(-1).to(self.device)
+        else:
+            vt = torch.from_numpy(np.ascontiguousarray(np.asarray(vals).ravel())).to(self.device)
+        if isinstance(keys, torch.Tensor) and keys.dtype in bitonic.DTYPE_CODES:
+            k_np, key_dtype = None, np.dtype(str(keys.dtype).removeprefix("torch."))
+            kt = keys.detach().reshape(-1).to(self.device)
+        else:
+            k_np = _host(keys).ravel()
+            key_dtype = k_np.dtype
+            kt = dtypes.to_device(k_np, self.device) if kernel_keys(key_dtype) else None
+        n = kt.shape[0] if kt is not None else k_np.size
+        if vt.shape[0] != n:
+            raise ValueError(f"sort_pairs: {n} keys but {vt.shape[0]} payload values")
+        if n <= 1:
+            if kt is None:
+                return torch.from_numpy(k_np).to(self.device), vt
+            return dtypes.to_user_tensor(kt, key_dtype), vt
+        n_pad = ops.bucketed_length(n)
+        if n_pad > ops.MAX_TILE:
+            # the reference pre-pads, so its message names the padded length
+            raise ValueError(f"local_sort_pairs supports n ≤ {ops.MAX_TILE}, got {n_pad}")
+        if kt is None:
+            # keys no pair kernel takes (float64, float16, …): the host
+            # stable argsort, its permutation gathered on the device
+            ks, perm = self.argsort_keys(k_np)
+            return torch.from_numpy(ks).to(self.device), vt[torch.from_numpy(perm).to(self.device)]
+        ks, vs = ops.local_sort_pairs(kt, vt)
+        return dtypes.to_user_tensor(ks, key_dtype), vs
+
+    def argsort_keys(self, keys) -> tuple[np.ndarray, np.ndarray]:
+        """``(sorted_keys, permutation)`` with ``sorted_keys == keys[perm]``.
+
+        The permutation comes from the tagged pair kernel sorting
+        ``(key, arange)`` on the engine's device — 64-bit integer keys
+        included.  Keys of a dtype no kernel takes (float64, float16, …)
+        and arrays past ``ops.MAX_TILE`` take the host stable argsort.
+        Takes numpy or a tensor; returns numpy.
+        """
+        keys_np = _host(keys).ravel()
+        n = keys_np.size
+        if n <= 1:
+            return keys_np.copy(), np.arange(n, dtype=np.int64)
+        if not kernel_keys(keys_np.dtype) or ops.bucketed_length(n) > ops.MAX_TILE:
+            perm = np.argsort(keys_np, kind="stable")
+            why = (
+                "(x64/tile exactness rule)" if kernel_keys(keys_np.dtype)
+                else "(no pair kernel for this dtype)"
+            )
+            self.last_report = {
+                "plan": SortPlan(
+                    "host", "pairs", None, None,
+                    f"argsort: {keys_np.dtype} n={n} host stable argsort {why}",
+                ),
+                "n": n, "overflow_retries": 0, "counts_sum": n,
+            }
+            return keys_np[perm], perm
+        kt = dtypes.to_device(keys_np, self.device)
+        ks, perm = ops.local_sort_pairs(kt, torch.arange(n, dtype=torch.int32, device=self.device))
+        self.last_report = {
+            "plan": SortPlan(
+                "sim", "pairs", None, ops.bucketed_length(n),
+                f"argsort: tagged pair kernel over (key, arange), n={n}",
+            ),
+            "n": n, "overflow_retries": 0, "counts_sum": n,
+        }
+        return dtypes.to_numpy(ks, keys_np.dtype), perm.cpu().numpy().astype(np.int64)
+
+    def _sort_pairs_tree(self, keys, vals):
+        """Pytree payload path: one key argsort, then a host gather of
+        every leaf along its leading axis (byte-exact)."""
+        keys_np = _host(keys).ravel()
+        n = keys_np.size
+        index = itertools.count()
+
+        def checked(leaf):
+            leaf, i = _host(leaf), next(index)
+            if leaf.ndim < 1 or leaf.shape[0] != n:
+                raise ValueError(
+                    f"sort_pairs: payload leaf {i} has shape {leaf.shape}; "
+                    f"leading dim must equal n={n}"
+                )
+            return leaf
+
+        tree = pytree.tree_map(checked, vals)
+        if n <= 1:
+            return keys_np.copy(), pytree.tree_map(np.copy, tree)
+        ks, perm = self.argsort_keys(keys_np)
+        return ks, pytree.tree_map(lambda leaf: leaf[perm], tree)
+
+    # ----------------------------------------------------------------- top-k
+    def _check_top_k(self, n: int, k) -> int:
+        if isinstance(k, bool) or not isinstance(k, (int, np.integer)):
+            raise TypeError(f"top_k: k must be an int, got {type(k).__name__}")
+        k = int(k)
+        if k < 0:
+            raise ValueError(f"top_k: k must be >= 0, got {k}")
+        if k > n:
+            raise TopKTooLarge(f"top_k: k={k} exceeds n={n}")
+        return k
+
+    def _plan_top_k_info(self, x_np: np.ndarray, k: int):
+        """Plan + exact skip/capacity accounting for one top-k request.
+
+        One O(n) host histogram under the exact kernel bucket rule
+        (``workloads.host_bucket_ids``) yields the cut bucket, the
+        skipped-bucket count, and a capacity sized to the KEPT buckets
+        only.  Keys of a dtype no kernel takes go to the host head; 64-bit
+        integer keys stay on the sim path, as in ``choose_plan``.
+        """
+        n = x_np.size
+        P = self.topo.total_procs
+        ids = workloads.host_bucket_ids(x_np, P)
+        counts = np.bincount(ids, minlength=P)
+        keep, skipped = workloads.topk_cut(counts, k)
+        kept_count = int(counts[:keep].sum())
+        # The executed kept prefix is the pow2 ceiling of the exact cut
+        # (capped at P), so nearby cuts share one executor.
+        keep_exec = min(P, 1 << int(keep - 1).bit_length())
+        padded_n = ops.bucketed_length(n)
+        if (
+            not kernel_keys(x_np.dtype)
+            or n >= self.host_threshold
+            or kept_count <= n // 4
+        ):
+            # Small heads (or no kernel for the dtype): the host executor
+            # sorts only the kept prefix.
+            plan = SortPlan(
+                "host", "topk", None, None,
+                f"top_k k={k}: skipped={skipped}/{P} buckets past the cut, "
+                f"kept {kept_count}/{n} keys; exact host head",
+            )
+        else:
+            cap = max(int(counts[:keep_exec].max()), 8)
+            cap += (-cap) % 8
+            cap = min(cap, padded_n + (-padded_n) % 8)
+            plan = SortPlan(
+                "sim", "topk", cap, padded_n,
+                f"top_k k={k}: skipped={P - keep_exec}/{P} buckets past the "
+                f"cut (exact cut {keep}, pow2 exec {keep_exec}), kept-bucket "
+                f"capacity={cap}",
+            )
+        plan = self._apply_fault(plan, n=n, itemsize=x_np.dtype.itemsize)
+        info = {
+            "keep": keep,
+            "keep_exec": keep_exec,
+            "skipped": skipped,
+            "kept_count": kept_count,
+            "counts": counts,
+        }
+        return plan, info
+
+    def plan_top_k(self, x, k) -> SortPlan:
+        """The top-k dispatch decision without executing it."""
+        x_np = _host(x).ravel()
+        k = self._check_top_k(x_np.size, k)
+        if k == 0 or x_np.size <= 1:
+            return SortPlan(
+                "host", "topk", None, None, f"top_k k={k}: trivial head"
+            )
+        return self._plan_top_k_info(x_np, k)[0]
+
+    def top_k(self, x, k, *, plan: SortPlan | None = None) -> np.ndarray:
+        """The sorted head ``np.sort(x)[:k]`` without sorting past rank k.
+
+        Reuses the bucket machinery: the equal-width rule orders buckets
+        by value range, so once the cumulative bucket histogram covers
+        ``k`` every later bucket is wholly past the head and is skipped
+        (``SortPlan.reason`` reports the skipped-bucket count).  Always
+        exact, ties at rank k included.  ``k > n`` raises
+        :class:`~repro_torch.core.workloads.TopKTooLarge`.  Takes numpy or
+        a tensor; returns numpy.
+        """
+        x_np = _host(x).ravel()
+        n = x_np.size
+        k = self._check_top_k(n, k)
+        P = self.topo.total_procs
+        if k == 0 or n == 0:
+            self.last_report = {
+                "plan": None, "n": n, "k": k, "overflow_retries": 0,
+                "skipped_buckets": P, "kept_count": 0,
+            }
+            return x_np[:0].copy()
+        if n <= 1:
+            self.last_report = {
+                "plan": None, "n": n, "k": k, "overflow_retries": 0,
+                "skipped_buckets": 0, "kept_count": n,
+            }
+            return x_np.copy()
+        auto_plan, info = self._plan_top_k_info(x_np, k)
+        if plan is None:
+            plan = auto_plan
+        else:
+            plan = self._apply_fault(plan, n=n, itemsize=x_np.dtype.itemsize)
+        if plan.path != "sim":
+            head, hinfo = workloads.host_top_k(x_np, k, P)
+            self.last_report = {
+                "plan": plan, "n": n, "k": k, "overflow_retries": 0,
+                "skipped_buckets": hinfo["skipped_buckets"],
+                "kept_count": hinfo["kept_count"],
+                "counts_sum": hinfo["kept_count"],
+            }
+            return head
+        padded_n = plan.padded_n or ops.bucketed_length(n)
+        capacity = plan.capacity or partition.default_capacity(padded_n, P)
+        keep = info["keep_exec"]
+        x_pad = np.zeros(padded_n, dtypes.key_dtype(x_np.dtype))
+        x_pad[:n] = dtypes.to_keys(x_np)
+        xt = torch.from_numpy(x_pad).to(self.device)
+        retries = 0
+        while True:
+            fn = self._get_topk_fn(padded_n, capacity, keep, x_np.dtype)
+            head_pad, counts, kept_total = fn(xt, n)
+            kept_total = int(kept_total)
+            got = int(counts.sum())
+            if got < kept_total:
+                # A kept bucket overflowed its (kept-only) capacity:
+                # escalate ×2 exactly like sort's retry loop.
+                if capacity >= padded_n:
+                    raise AssertionError("overflow with capacity == padded_n")
+                capacity = min(padded_n, capacity * 2)
+                capacity += (-capacity) % 8
+                retries += 1
+                continue
+            if kept_total < k:
+                # A forced/stale plan cut too early: widen the kept prefix.
+                if keep >= P:
+                    raise AssertionError("top_k cut miss with keep == P")
+                keep = min(P, keep * 2)
+                retries += 1
+                continue
+            break
+        self.last_report = {
+            "plan": plan, "n": n, "k": k, "capacity_used": capacity,
+            "skipped_buckets": P - keep, "kept_count": kept_total,
+            "counts_sum": got, "overflow_retries": retries,
+            "counts": counts.cpu().numpy(),
+        }
+        return dtypes.to_numpy(head_pad[:k], x_np.dtype)
+
+    def _get_topk_fn(self, padded_n: int, capacity: int, keep: int, dtype):
+        key = ("topk", padded_n, capacity, keep, str(dtype))
+        fn = self._fn_cache.get(key)
+        if fn is None:
+            self.trace_count += 1
+
+            def fn(x_pad, n_valid):
+                return _sim_topk_padded(
+                    x_pad, n_valid, P=self.topo.total_procs, keep=keep,
+                    capacity=capacity, local_sort=self.local_sort,
+                )
+
+            self._fn_cache[key] = fn
+        return fn
+
+    # ----------------------------------------------------------------- merge
+    def merge_sorted(self, sorted_buf, new_keys) -> np.ndarray:
+        """Fold ``new_keys`` into an already-sorted buffer incrementally.
+
+        The increment goes through the full engine dispatch (``sort``)
+        and the two ascending runs fuse in O(n + m) with the host
+        ``searchsorted`` gather.  The buffer must already be ascending
+        (validated, O(n)); dtype mismatches are a typed error, never a
+        silent cast.  Takes numpy or tensors; returns numpy.
+        """
+        buf = _host(sorted_buf).ravel()
+        new = _host(new_keys).ravel()
+        if buf.dtype != new.dtype:
+            raise ValueError(
+                f"merge_sorted: dtype mismatch — buffer {buf.dtype} "
+                f"vs new keys {new.dtype}"
+            )
+        if not workloads.check_sorted(buf):
+            raise ValueError(
+                "merge_sorted: sorted_buf is not ascending — sort it first"
+            )
+        if new.size == 0:
+            self.last_report = {
+                "plan": SortPlan(
+                    "host", "merge", None, None,
+                    f"merge: empty increment onto |buf|={buf.size}",
+                ),
+                "n": buf.size, "overflow_retries": 0,
+                "counts_sum": buf.size, "merged_new": 0,
+            }
+            return buf.copy()
+        inner_plan = None
+        retries = 0
+        if new.size > 1:
+            new_sorted = self.sort(new)  # full dispatch for the increment
+            inner = self.last_report or {}
+            inner_plan = inner.get("plan")
+            retries = int(inner.get("overflow_retries", 0))
+        else:
+            new_sorted = new
+        out = workloads.merge_sorted_arrays(buf, new_sorted)
+        plan = SortPlan(
+            "host", "merge", None, None,
+            f"merge: |buf|={buf.size} reused sorted, |new|={new.size} "
+            f"engine-sorted ({getattr(inner_plan, 'path', 'trivial')}"
+            f"/{getattr(inner_plan, 'method', '-')}), "
+            "O(n+m) searchsorted gather",
+        )
+        self.last_report = {
+            "plan": plan, "n": out.size, "overflow_retries": retries,
+            "counts_sum": out.size, "merged_new": int(new.size),
+            "inner_plan": inner_plan,
+        }
+        return out

@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels of the port, each beside its plain torch version.
 
-* ``bitonic``          — bitonic tile sort (``sort_tile``) and in-place
+* ``bitonic``          — bitonic tile sort (``sort_tile``), in-place
                          two-tile merge (``merge_tile_pairs``/``merge_tiles``)
+                         and the pair sorts (``sort_pairs_tile_tagged``,
+                         ``sort_pairs_tile``)
 * ``batched``          — fused segmented row sort (``batched_row_sort``)
+                         and its pair twin (``batched_row_sort_pairs``)
 * ``partition_kernel`` — bucket histogram + stable ranks
                          (``bucket_count_rank``)
 * ``ops``              — the compositions the core calls
@@ -20,6 +23,9 @@ KERNELS = {
     "sort_tile": bitonic.sort_tile,
     "merge_tiles": bitonic.merge_tile_pairs,
     "batched_row_sort": batched.batched_row_sort,
+    "sort_pairs_tile_tagged": bitonic.sort_pairs_tile_tagged,
+    "batched_row_sort_pairs": batched.batched_row_sort_pairs,
+    "sort_pairs_tile": bitonic.sort_pairs_tile,
 }
 
 

@@ -37,9 +37,11 @@ _SIGNATURES = {
     "bitonic": {
         "rt_sort_rows": (_I, _P, _P, _LL, _I, _P),
         "rt_merge_pairs": (_I, _P, _LL, _LL, _I, _I, _P),
+        "rt_sort_pairs_rows": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P),
     },
     "batched": {
         "rt_batched_row_sort": (_I, _I, _P, _P, _P, _LL, _I, _P),
+        "rt_batched_row_sort_pairs": (_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P),
     },
     "partition": {
         "rt_bucket_count_rank": (_P, _LL, _I, _P, _P, _P, _P),

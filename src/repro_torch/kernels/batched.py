@@ -15,6 +15,17 @@ Two compare-exchange stages, as in the reference:
 
 A CPU tensor runs :func:`batched_row_sort_plain`; a CUDA tensor launches
 the kernel or raises.
+
+:func:`batched_row_sort_pairs` is the ``(key, payload)`` twin
+(``repro.kernels.batched.batched_row_sort_pairs``): validity rides as the
+tag of the lexicographic ``(tag, key)`` exchange, computed in the kernel
+from the row length, so real keys equal to the dtype max keep their
+payloads ahead of the pad tail (sentinel keys, zero payloads).  A row
+whose keys, payloads and tags fit one block's shared memory
+(``MAX_PAIR_ROW_BYTES``) is sorted by one block of ``csrc/batched.cu``;
+a longer row gets its fill from torch ops and is sorted by the
+multi-pass pair kernel of ``csrc/bitonic.cu``
+(:func:`bitonic.sort_pairs_tile_tagged`).
 """
 
 from __future__ import annotations
@@ -24,12 +35,23 @@ import torch
 from repro_torch import dtypes
 from repro_torch.kernels import _build, bitonic
 
-__all__ = ["batched_row_sort", "batched_row_sort_plain", "METHODS", "MAX_ROW_BYTES"]
+__all__ = [
+    "batched_row_sort",
+    "batched_row_sort_plain",
+    "batched_row_sort_pairs",
+    "batched_row_sort_pairs_plain",
+    "METHODS",
+    "MAX_ROW_BYTES",
+    "MAX_PAIR_ROW_BYTES",
+]
 
 METHODS = ("bitonic", "bitonic2op")
 
 # One row lives in one block's shared memory: 8192 keys of 8 bytes.
 MAX_ROW_BYTES = 64 * 1024
+# A pair row's keys, payloads and one tag byte a pair, against the 227 KB
+# of shared memory a block may opt into on Hopper.
+MAX_PAIR_ROW_BYTES = 232_448
 
 
 def _validate(padded: torch.Tensor, seg_lens: torch.Tensor, method: str) -> int:
@@ -99,3 +121,84 @@ def batched_row_sort(
 
 
 batched_row_sort.launches = 0
+
+
+# ------------------------------------------------------------- pair rows
+def _validate_pairs(keys: torch.Tensor, vals: torch.Tensor, seg_lens: torch.Tensor) -> int:
+    bitonic.check_keys(keys, "batched_row_sort_pairs")
+    if keys.dim() != 2:
+        raise ValueError(f"batched_row_sort_pairs takes (B, L), got {tuple(keys.shape)}")
+    if vals.shape != keys.shape or vals.device != keys.device:
+        raise ValueError("batched_row_sort_pairs: vals differ from keys in shape or device")
+    rows = keys.shape[0]
+    if seg_lens.shape != (rows,) or seg_lens.dtype != torch.int32:
+        raise ValueError(f"seg_lens must be ({rows},) int32, got {tuple(seg_lens.shape)} {seg_lens.dtype}")
+    if seg_lens.device != keys.device:
+        raise ValueError("seg_lens and keys lie on different devices")
+    return bitonic.check_tile(keys.shape[1])
+
+
+def _fill_pairs(keys, vbits, seg_lens):
+    """Sentinel keys, 1 tags and zero payloads at and past each row's length."""
+    pos = torch.arange(keys.shape[1], device=keys.device)
+    valid = pos[None, :] < seg_lens[:, None]
+    fill = torch.tensor(dtypes.max_sentinel(keys.dtype), dtype=keys.dtype, device=keys.device)
+    k = torch.where(valid, keys, fill)
+    v = torch.where(valid, vbits, torch.zeros((), dtype=vbits.dtype, device=vbits.device))
+    return k, (~valid).to(torch.uint8), v
+
+
+def batched_row_sort_pairs_plain(keys: torch.Tensor, vals: torch.Tensor, seg_lens: torch.Tensor):
+    """Plain version of :func:`batched_row_sort_pairs` (any device)."""
+    _validate_pairs(keys, vals, seg_lens)
+    k, t, v = _fill_pairs(keys, bitonic.payload_bits(vals, "batched_row_sort_pairs"), seg_lens)
+    ks, vs = bitonic._pair_network(k, t, v)
+    return ks, vs.view(vals.dtype)
+
+
+def batched_row_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, seg_lens: torch.Tensor):
+    """Sort the ``(key, payload)`` pairs of every row of ``(B, L)`` to its
+    ``seg_lens`` valid length.
+
+    Row ``i`` comes out as its first ``seg_lens[i]`` pairs sorted by key
+    (payloads with their keys), then dtype-max keys with zero payloads,
+    whatever the pad cells held.  ``L`` is a power-of-two multiple of 128;
+    ``seg_lens`` is ``(B,)`` int32 on the same device.  The payload may be
+    of any dtype 1, 2, 4 or 8 bytes wide.
+    """
+    if keys.device.type == "cpu":
+        return batched_row_sort_pairs_plain(keys, vals, seg_lens)
+    log_n = _validate_pairs(keys, vals, seg_lens)
+    vbits = bitonic.payload_bits(vals, "batched_row_sort_pairs")
+    rows, length = keys.shape
+    if length * (keys.element_size() + vals.element_size() + 1) > MAX_PAIR_ROW_BYTES:
+        # Past one block's shared memory: the same fill in torch, then the
+        # multi-pass pair kernel over the rows.
+        k, t, v = _fill_pairs(keys, vbits, seg_lens)
+        ks, vs = bitonic.sort_pairs_tile_tagged(k, t, v)
+        return ks, vs.view(vals.dtype)
+    for x in (keys, vals, seg_lens):
+        if not x.is_contiguous():
+            raise ValueError("batched_row_sort_pairs: the kernel takes contiguous tensors only")
+    out_k = torch.empty_like(keys)
+    out_v = torch.empty_like(vbits)
+    if rows:
+        lib = _build.load("batched")
+        code = lib.rt_batched_row_sort_pairs(
+            bitonic.DTYPE_CODES[keys.dtype],
+            vbits.element_size(),
+            keys.data_ptr(),
+            vbits.data_ptr(),
+            out_k.data_ptr(),
+            out_v.data_ptr(),
+            seg_lens.data_ptr(),
+            rows,
+            log_n,
+            bitonic.stream_handle(),
+        )
+        _build.check(lib, code, "batched_row_sort_pairs")
+        batched_row_sort_pairs.launches += 1
+    return out_k, out_v.view(vals.dtype)
+
+
+batched_row_sort_pairs.launches = 0

@@ -18,6 +18,17 @@
 // and writes the row once.  Device memory is touched once each way; the
 // block's stages and barriers are the cost, and 64 rows occupy only 64 of
 // the 132 SMs.
+//
+// rt_batched_row_sort_pairs replaces batched_row_sort_pairs
+// (batched_row_sort_pairs_kernel): the same one-block-per-row sort of
+// (key, payload) pairs on (tag, key), with tag = pos >= seg_lens[b]
+// computed on load, so pad slots sort after every real one even where a
+// real key equals the dtype max; the tail leaves as dtype-max keys with
+// zero payloads.  A (64, 8192) int32/int32 batch moves 4 MiB each way at
+// most (the pad cells are not read), 2.5 us, well above its 0.1 us of
+// comparisons.  A row's keys, payloads and tags must fit the 227 KB
+// opt-in (16,384 int32/int32 pairs are 144 KiB); the wrapper sends longer
+// rows to rt_sort_pairs_rows in bitonic.cu.
 #include "common.cuh"
 
 namespace {
@@ -35,6 +46,22 @@ int row_sort(const void* in, void* out, const int* seg_lens, long long rows, int
   return (int)cudaGetLastError();
 }
 
+// K6: the pair twin of row_sort.  The tag is computed on load from the
+// row length, so no tag stream is read or written.
+template <typename K, typename V>
+int row_sort_pairs(const void* keys, const void* vals, void* out_keys, void* out_vals,
+                   const int* seg_lens, long long rows, int log_n, cudaStream_t st) {
+  const rt::Segs g{1LL << log_n, 1, log_n};
+  const size_t smem = (size_t)rt::pair_bytes<K, V, true>() << log_n;
+  auto kernel = rt::smem_stages_pairs<K, V, true, true>;
+  const cudaError_t err = rt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)rows, rt::threads_for(log_n), smem, st>>>(
+      static_cast<const K*>(keys), nullptr, static_cast<const V*>(vals), static_cast<K*>(out_keys),
+      nullptr, static_cast<V*>(out_vals), g, seg_lens, log_n, 0, log_n - 1, 31);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -48,6 +75,21 @@ int rt_batched_row_sort(int dtype, int two_op, const void* in, void* out, const 
     RT_DISPATCH(dtype, T, return row_sort<T, true>(in, out, seg_lens, rows, log_n, st));
   }
   RT_DISPATCH(dtype, T, return row_sort<T, false>(in, out, seg_lens, rows, log_n, st));
+  return (int)cudaErrorInvalidValue;
+}
+
+// Sort each row of the contiguous (rows, 2^log_n) pairs (keys, vals) to
+// its seg_lens[row] valid prefix on (tag, key), tag = pos >= seg_lens[row];
+// the tail comes out as dtype-max keys with zero payloads.  The payload is
+// moved as raw bits of val_width bytes (1, 2, 4 or 8).
+int rt_batched_row_sort_pairs(int key_code, int val_width, const void* keys, const void* vals,
+                              void* out_keys, void* out_vals, const int* seg_lens, long long rows,
+                              int log_n, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RT_DISPATCH(key_code, K, return rt::dispatch_width(val_width, [&](auto v) {
+    using V = decltype(v);
+    return row_sort_pairs<K, V>(keys, vals, out_keys, out_vals, seg_lens, rows, log_n, st);
+  }));
   return (int)cudaErrorInvalidValue;
 }
 

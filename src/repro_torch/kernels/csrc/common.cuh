@@ -1,4 +1,5 @@
-// Shared pieces of the bitonic kernels (bitonic.cu, batched.cu).
+// Shared pieces of the bitonic kernels (bitonic.cu, batched.cu): the key
+// stages and their (key, tag, payload) pair twins.
 //
 // A bitonic stage (s, j) pairs element i with i + 2^j (bit j of i clear)
 // and orders the pair ascending when bit s+1 of i is clear, descending
@@ -133,6 +134,151 @@ __global__ void smem_stages(const T* in, T* out, Segs g, const int* seg_lens, in
   for (int t = threadIdx.x; t < c; t += blockDim.x) out[off + t] = sm[t];
 }
 
+// ------------------------------------------------------------ pair stages
+// (key, payload) sorts: K5 (tagged), K6 (tagged, tag computed on load)
+// and K7 (untagged).  Three struct-of-arrays streams: the key K, a
+// one-byte validity tag (0 = real, 1 = pad), and the payload moved as raw
+// bits V (uint8_t … uint64_t), so any payload dtype travels unchanged.
+//
+// The compare is the reference's (_compare_exchange_tagged in
+// src/repro/kernels/bitonic.py): a > b when (ta > tb) or (ta == tb and
+// ka > kb), a < b likewise, swap = asc ? a > b : a < b, so ties never
+// swap.  (tag, key) is never packed into one wider integer: for float keys
+// a packed bit pattern would order -0.0 before +0.0 and swap where the
+// reference does not.  Untagged (K7) is the same rule with every tag 0.
+template <typename K, bool TAGGED>
+__device__ __forceinline__ bool pair_swap(K ka, K kb, uint8_t ta, uint8_t tb, bool asc) {
+  bool gt, lt;
+  if constexpr (TAGGED) {
+    gt = (ta > tb) || (ta == tb && ka > kb);
+    lt = (ta < tb) || (ta == tb && ka < kb);
+  } else {
+    gt = ka > kb;
+    lt = ka < kb;
+  }
+  return asc ? gt : lt;
+}
+
+// Shared-memory bytes of one pair: key, payload, and the tag if any.
+template <typename K, typename V, bool TAGGED>
+constexpr int pair_bytes() {
+  return (int)(sizeof(K) + sizeof(V)) + (TAGGED ? 1 : 0);
+}
+
+// One stage (s, j) of a pair sort over every segment, in device memory.
+// A pair is written back only when it swaps.
+template <typename K, typename V, bool TAGGED>
+__global__ void global_stage_pairs(K* keys, uint8_t* tags, V* vals, Segs g, long long n_segs,
+                                   int s, int j) {
+  const long long half = 1LL << (g.log_seg - 1);
+  const long long total = n_segs * half;
+  const long long d = 1LL << j;
+  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
+       p += (long long)gridDim.x * blockDim.x) {
+    const long long seg = p >> (g.log_seg - 1);
+    const long long q = p & (half - 1);
+    const long long i = ((q >> j) << (j + 1)) | (q & (d - 1));
+    const long long ia = seg_offset(g, seg) + i;
+    const long long ib = ia + d;
+    const K ka = keys[ia];
+    const K kb = keys[ib];
+    uint8_t ta = 0, tb = 0;
+    if constexpr (TAGGED) {
+      ta = tags[ia];
+      tb = tags[ib];
+    }
+    if (pair_swap<K, TAGGED>(ka, kb, ta, tb, ((i >> (s + 1)) & 1) == 0)) {
+      keys[ia] = kb;
+      keys[ib] = ka;
+      if constexpr (TAGGED) {
+        tags[ia] = tb;
+        tags[ib] = ta;
+      }
+      const V va = vals[ia];
+      vals[ia] = vals[ib];
+      vals[ib] = va;
+    }
+  }
+}
+
+// The pair twin of smem_stages: stages s_lo..s_hi for every distance
+// below the chunk, in shared memory (keys, then payloads, then tags).
+// Without FILL the tags come from `tin`, and go back to `tout` when it is
+// not null (a multi-pass sort keeps them between passes).  With FILL (K6,
+// one chunk per segment) the tag is computed on load as
+// pos >= seg_lens[segment]; a pad position is not read but takes the
+// dtype-max key and a zero payload, and no tag is read or written.
+template <typename K, typename V, bool TAGGED, bool FILL>
+__global__ void smem_stages_pairs(const K* kin, const uint8_t* tin, const V* vin, K* kout,
+                                  uint8_t* tout, V* vout, Segs g, const int* seg_lens, int log_c,
+                                  int s_lo, int s_hi, int j_first) {
+  static_assert(TAGGED || !FILL, "FILL computes the tag");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int c = 1 << log_c;
+  K* sk = reinterpret_cast<K*>(smem_raw);
+  V* sv = reinterpret_cast<V*>(smem_raw + (size_t)c * sizeof(K));
+  uint8_t* st = smem_raw + (size_t)c * (sizeof(K) + sizeof(V));
+  const int shift = g.log_seg - log_c;
+  const long long seg = (long long)blockIdx.x >> shift;
+  const long long base_idx = (long long)(blockIdx.x & ((1u << shift) - 1)) << log_c;
+  const long long off = seg_offset(g, seg) + base_idx;
+  const long long len = FILL ? (long long)seg_lens[seg] : 0;
+  for (int t = threadIdx.x; t < c; t += blockDim.x) {
+    bool pad = false;
+    if constexpr (FILL) pad = base_idx + t >= len;
+    K k = max_sentinel<K>();
+    V v = 0;
+    if (!pad) {  // a pad cell is never read
+      k = kin[off + t];
+      v = vin[off + t];
+    }
+    if constexpr (FILL) {
+      st[t] = pad ? 1 : 0;
+    } else if constexpr (TAGGED) {
+      st[t] = tin[off + t];
+    }
+    sk[t] = k;
+    sv[t] = v;
+  }
+  __syncthreads();
+  for (int s = s_lo; s <= s_hi; ++s) {
+    int j0 = s < log_c - 1 ? s : log_c - 1;
+    if (s == s_lo && j_first < j0) j0 = j_first;
+    for (int j = j0; j >= 0; --j) {
+      for (int q = threadIdx.x; q < c / 2; q += blockDim.x) {
+        const int i = ((q >> j) << (j + 1)) | (q & ((1 << j) - 1));
+        const int k = i + (1 << j);
+        const K ka = sk[i];
+        const K kb = sk[k];
+        uint8_t ta = 0, tb = 0;
+        if constexpr (TAGGED) {
+          ta = st[i];
+          tb = st[k];
+        }
+        if (pair_swap<K, TAGGED>(ka, kb, ta, tb, (((base_idx + i) >> (s + 1)) & 1) == 0)) {
+          sk[i] = kb;
+          sk[k] = ka;
+          if constexpr (TAGGED) {
+            st[i] = tb;
+            st[k] = ta;
+          }
+          const V va = sv[i];
+          sv[i] = sv[k];
+          sv[k] = va;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int t = threadIdx.x; t < c; t += blockDim.x) {
+    kout[off + t] = sk[t];
+    vout[off + t] = sv[t];
+    if constexpr (TAGGED && !FILL) {
+      if (tout != nullptr) tout[off + t] = st[t];
+    }
+  }
+}
+
 inline int threads_for(int log_c) {
   const int pairs = 1 << (log_c - 1);
   return pairs < 1024 ? (pairs < 32 ? 32 : pairs) : 1024;
@@ -148,6 +294,23 @@ template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Calls f(V{}) with V the unsigned payload type of `width` bytes.
+template <typename F>
+int dispatch_width(int width, F&& f) {
+  switch (width) {
+    case 1:
+      return f(uint8_t{});
+    case 2:
+      return f(uint16_t{});
+    case 4:
+      return f(uint32_t{});
+    case 8:
+      return f(uint64_t{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rt

@@ -6,8 +6,10 @@ and sorts the last axis, which stands in for the reference's
 dtype max → sort every tile of every row in one launch → merge-splitting
 network across tiles (odd-even transposition over sorted blocks with the
 two-tile bitonic merge as the comparator, correct for any number of tiles
-in ``num_tiles`` alternating half-passes).  On CUDA tensors every step is a
-hand-written kernel; on CPU tensors the kernels' plain versions run.
+in ``num_tiles`` alternating half-passes).  ``local_sort_pairs`` is the
+``(key, payload)`` sort of one tile on the tagged pair kernel.  On CUDA
+tensors every step is a hand-written kernel; on CPU tensors the kernels'
+plain versions run.
 """
 
 from __future__ import annotations
@@ -65,6 +67,29 @@ def local_sort(x: torch.Tensor) -> torch.Tensor:
             bitonic.merge_tile_pairs(tiles, p % 2)
         out = tiles.view(r, n_pad)
     return out[:, :n].reshape(*lead, n)
+
+
+def local_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, *, n_valid=None):
+    """Sort 1-D ``(key, payload)`` pairs by key.  Single-tile sizes (≤ MAX_TILE).
+
+    Sentinel-safe: the pad slots and every position at or past ``n_valid``
+    (default ``len(keys)``) carry a validity tag that breaks key ties, so
+    real elements whose keys equal the dtype-max pad sentinel keep their
+    payloads ahead of the zero-payload pad tail.
+    """
+    n = keys.shape[0]
+    n_pad = bucketed_length(n)
+    if n_pad > MAX_TILE:
+        raise ValueError(f"local_sort_pairs supports n ≤ {MAX_TILE}, got {n}")
+    if n_valid is None:
+        n_valid = n
+    kp = torch.full((n_pad,), dtypes.max_sentinel(keys.dtype), dtype=keys.dtype, device=keys.device)
+    kp[:n] = keys
+    vp = torch.zeros((n_pad,), dtype=vals.dtype, device=vals.device)
+    vp[:n] = vals
+    tags = (torch.arange(n_pad, device=keys.device) >= n_valid).to(torch.uint8)
+    ks, vs = bitonic.sort_pairs_tile_tagged(kp, tags, vp)
+    return ks[:n], vs[:n]
 
 
 def bucket_count_rank(ids: torch.Tensor, num_buckets: int, *, debug: bool = False):

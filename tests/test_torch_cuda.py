@@ -79,3 +79,60 @@ def test_cuda_engine_sort_and_segments_match_np_sort(dtype, cuda_device, rng):
     out = eng.sort_segments(np.concatenate(segs), [s.size for s in segs])
     for o, s in zip(out, segs):
         assert np.array_equal(o, np.sort(s))
+
+
+def _card_payload(rng, shape, dtype, device):
+    bits = bitonic._BITS[torch.empty((), dtype=dtype).element_size()]
+    return torch.from_numpy(rng.integers(-(2**62), 2**62, shape)).to(bits).view(dtype).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (np.int8, np.int16, np.int32, np.int64, np.float32), ids=lambda d: np.dtype(d).name)
+def test_cuda_pair_sorts_match_plain(dtype, cuda_device, rng):
+    # K5 and K7, every payload width, one chunk and several device-memory passes
+    for vdtype in (torch.bool, torch.bfloat16, torch.float32, torch.float64):
+        for n in (4096, 1 << 16):
+            k = _card_keys(rng, (3, n), dtype, cuda_device)
+            k[:, ::9] = torch.iinfo(k.dtype).max if not k.dtype.is_floating_point else float("inf")
+            v = _card_payload(rng, (3, n), vdtype, cuda_device)
+            t = torch.rand(3, n, device=cuda_device) < 0.3
+            bits = bitonic._BITS[v.element_size()]
+            got = bitonic.sort_pairs_tile_tagged(k, t, v)
+            want = bitonic.sort_pairs_tile_tagged_plain(k, t, v)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(bits), want[1].view(bits))
+            got = bitonic.sort_pairs_tile(k, v)
+            want = bitonic.sort_pairs_tile_plain(k, v)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(bits), want[1].view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", (256, 8192, 1 << 15))
+def test_cuda_batched_row_sort_pairs_matches_plain(length, cuda_device, rng):
+    # 2^15 int32/int32 pairs pass one block's shared memory: the fill in
+    # torch, then the multi-pass pair kernel
+    for dtype in (np.int32, np.int64, np.float32):
+        k = _card_keys(rng, (6, length), dtype, cuda_device)
+        v = _card_payload(rng, (6, length), torch.int32, cuda_device)
+        lens = torch.from_numpy(rng.integers(0, length + 1, 6).astype(np.int32)).to(cuda_device)
+        got = batched.batched_row_sort_pairs(k, v, lens)
+        want = batched.batched_row_sort_pairs_plain(k, v, lens)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (np.int32, np.int64, np.uint32, np.float32), ids=lambda d: np.dtype(d).name)
+def test_cuda_engine_pairs_and_workloads_match_numpy(dtype, cuda_device, rng):
+    from repro_torch.core import SortEngine
+
+    eng = SortEngine()
+    x = _keys(rng, 100_000, dtype) if dtype != np.float32 else rng.uniform(-1e6, 1e6, 100_000).astype(dtype)
+    ks, perm = eng.argsort_keys(x)
+    assert eng.last_report["plan"].path == "sim"
+    assert np.array_equal(ks, np.sort(x)) and np.array_equal(x[perm], ks)
+    assert np.array_equal(np.sort(perm), np.arange(x.size))
+    ks, vs = eng.sort_pairs(x, np.arange(x.size, dtype=np.int32))
+    assert ks.device.type == "cuda" and np.array_equal(x[vs.cpu().numpy()], np.sort(x))
+    assert np.array_equal(eng.top_k(x, 60_000), np.sort(x)[:60_000])
+    assert eng.last_report["plan"].path == "sim"
+    buf = np.sort(x[:50_000])
+    assert np.array_equal(eng.merge_sorted(buf, x[50_000:]), np.sort(x))
