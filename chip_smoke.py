@@ -9,7 +9,10 @@ no result line):
    from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain torch version on the card, bit for bit,
    at the main path's shapes, with CUDA-event times beside the bound, the
-   plain version's time and the library sort's;
+   plain version's time and the library sort's; the pair sorts K5 and K7
+   also at every boundary of their tiers (128 to 2^19 pairs, 1 and 3
+   rows, heavy ties, int64 keys with float64 payloads), with the device
+   time of each of their launches from ``torch.profiler``;
 3. the main path, ``SortEngine.sort``, against ``np.sort``: six dtypes x
    five distributions at n = 100,000, skewed inputs at 60,000 (sampled
    splitters, large capacities, a forced overflow), int64 keys spanning
@@ -168,6 +171,12 @@ def preflight() -> None:
             f"  {name}.cu: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
             f"spill stores {sorted(set(spills))}"
         )
+        # ptxas reports each kernel's spills after its "Compiling entry function" line
+        for fn, spill in re.findall(
+            r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores", _build.build_log(name), re.S
+        ):
+            if int(spill):
+                print(f"    spills {spill} bytes: {fn}")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -222,11 +231,14 @@ def kernel_checks() -> dict:
     err = max(err, same(bitonic.merge_tile_pairs(tiles), want, "merge_tile_pairs (36, 2, 2^19)"))
     ms = cuda_ms(lambda: bitonic.merge_tiles(a, c))
     plain = cuda_ms(lambda: bitonic.merge_tiles_plain(a, c), reps=3)
+    # torch.sort over the 2^20-key union gives the same (lo, hi) halves
+    union = torch.cat([a, c])
+    lib = cuda_ms(lambda: torch.sort(union))
     b, by = bound(4 * n * 4, 2 * n)
     rows["merge_tiles"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
         replaces="src/repro/kernels/bitonic.py:236", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
         shape="two 2^19 int32 tiles",
     )
 
@@ -305,6 +317,7 @@ def kernel_checks() -> dict:
             f"kernel {name} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}), plain {r['plain_ms']:.3f} ms, library {r['library_ms']}, "
             f"max_abs_err {r['max_abs_err']} {r.get('extra', '')}"
+            + (f" device {r['device_ms']:.4f} ms" if r.get("device_ms") is not None else "")
         )
     return rows
 
@@ -324,16 +337,96 @@ def same_pairs(got, want, what: str) -> float:
     return err
 
 
+# Row lengths at every boundary of the pair sort's tiers (csrc/bitonic.cu):
+# under one warp's 256 pairs, one warp, one 2,048-pair chunk, two and
+# four chunks (the first lengths with device-memory windows), then longer
+# rows up to argsort_keys' full width.
+PAIR_SIZES = (128, 256, 1 << 11, 1 << 12, 1 << 13, 1 << 15, 1 << 16, 1 << 19)
+
+
+def pair_keys(shape, heavy_ties: bool, gen: np.random.Generator) -> torch.Tensor:
+    """int32 keys over the whole type, or drawn from 16 values (heavy ties)."""
+    if heavy_ties:
+        return torch.from_numpy(gen.integers(0, 16, shape).astype(np.int32)).to(DEV)
+    return random_keys(shape, torch.int32, gen)
+
+
+def launch_profile(label: str, fn, reps: int = 5) -> dict:
+    """Device time of each kernel launch of one call of ``fn`` (one trace a
+    call, median over ``reps`` calls), summed by the pair sort's launch
+    kinds: the first chunk launch (every stage whose distances fit one
+    chunk: registers, warp shuffles, shared memory), the later chunk
+    launches (one stage's distances below the chunk each) and the device
+    windows (up to three longer distances each, through device memory)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        calls.append([
+            (e.name, e.device_time_total / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0 and "pair_" in e.name
+        ])
+    counts = [len(c) for c in calls]
+    per = max(set(counts), key=counts.count)
+    calls = [c for c in calls if len(c) == per]
+    if per == 0 or 2 * len(calls) <= reps:
+        print(f"tiers {label}: kernel launches not visible to torch.profiler")
+        return {}
+    ms = np.median(np.array([[t for _, t in c] for c in calls]), axis=0)
+    names = [n for n, _ in calls[0]]
+    chunk = [t for n, t in zip(names, ms) if "pair_chunk" in n]
+    window = [t for n, t in zip(names, ms) if "pair_device" in n]
+    out = dict(device_ms=float(ms.sum()), launches=per, first_ms=float(chunk[0]) if chunk else 0.0,
+               later_chunks=len(chunk) - 1, later_ms=float(sum(chunk[1:])), windows=len(window),
+               window_ms=float(sum(window)))
+    print(
+        f"tiers {label}: {per} launches, {out['device_ms']:.4f} ms on the card = first chunk launch "
+        f"{out['first_ms']:.4f} ms + {out['later_chunks']} chunk launches {out['later_ms']:.4f} ms "
+        f"+ {out['windows']} device windows {out['window_ms']:.4f} ms"
+    )
+    return out
+
+
 def pair_kernel_checks(gen: np.random.Generator) -> dict:
     rows = {}
     n = 1 << 19
+    # K5 and K7 at every tier boundary, 1 and 3 rows, random full-range
+    # keys and heavy ties (16 values), 30 % pad tags, an arange payload
+    err = 0.0
+    for m in PAIR_SIZES:
+        for nrows in (1, 3):
+            for heavy in (False, True):
+                k = pair_keys((nrows, m), heavy, gen)
+                t = torch.from_numpy((gen.random((nrows, m)) < 0.3).astype(np.uint8)).to(DEV)
+                v = torch.arange(nrows * m, dtype=torch.int32, device=DEV).view(nrows, m)
+                what = f"(rows={nrows}, n={m}){' heavy ties' if heavy else ''}"
+                err = max(err, same_pairs(
+                    bitonic.sort_pairs_tile_tagged(k, t, v), bitonic.sort_pairs_tile_tagged_plain(k, t, v),
+                    f"sort_pairs_tile_tagged {what}",
+                ), same_pairs(bitonic.sort_pairs_tile(k, v), bitonic.sort_pairs_tile_plain(k, v), f"sort_pairs_tile {what}"))
+    # 8-byte keys with 8-byte payloads: one whole chunk, two, and full width
+    for shape in ((3, 2048), (3, 4096), (1, n)):
+        k = random_keys(shape, torch.int64, gen)
+        k[:, ::7] = torch.iinfo(torch.int64).max
+        v = payload(shape, torch.float64, gen)
+        t = torch.from_numpy((gen.random(shape) < 0.3).astype(np.uint8)).to(DEV)
+        err = max(err, same_pairs(
+            bitonic.sort_pairs_tile_tagged(k, t, v), bitonic.sort_pairs_tile_tagged_plain(k, t, v),
+            f"sort_pairs_tile_tagged int64/float64 {shape}",
+        ), same_pairs(bitonic.sort_pairs_tile(k, v), bitonic.sort_pairs_tile_plain(k, v), f"sort_pairs_tile int64/float64 {shape}"))
     # K5 at argsort_keys' full width: (1, 2^19) int32 keys with an arange
     # payload and every tag 0 (n_valid = n).
     k = random_keys((1, n), torch.int32, gen)
     idx = torch.arange(n, dtype=torch.int32, device=DEV)[None]
     tags = torch.zeros((1, n), dtype=torch.uint8, device=DEV)
     got = bitonic.sort_pairs_tile_tagged(k, tags, idx)
-    err = same_pairs(got, bitonic.sort_pairs_tile_tagged_plain(k, tags, idx), "sort_pairs_tile_tagged 2^19")
+    err = max(err, same_pairs(got, bitonic.sort_pairs_tile_tagged_plain(k, tags, idx), "sort_pairs_tile_tagged 2^19"))
     if not torch.equal(got[0], torch.sort(k).values) or not torch.equal(k[0, got[1][0].long()], got[0][0]):
         fail("sort_pairs_tile_tagged: keys are not torch.sort's or payloads left their keys")
     # every key dtype at 4,096 with sentinel-equal keys and a pad tail,
@@ -351,15 +444,25 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
                 bitonic.sort_pairs_tile_tagged(y, t, v), bitonic.sort_pairs_tile_tagged_plain(y, t, v),
                 f"sort_pairs_tile_tagged {name}/{vdt}",
             ))
-    ms = cuda_ms(lambda: bitonic.sort_pairs_tile_tagged(k, tags, idx))
+    ms = cuda_ms(lambda: bitonic.sort_pairs_tile_tagged(k, tags, idx), reps=21)
+    # the event time includes the wrapper's host work; this is the card's
+    tiers = launch_profile("sort_pairs_tile_tagged (1, 2^19) int32/int32",
+                           lambda: bitonic.sort_pairs_tile_tagged(k, tags, idx))
+    # a one-byte payload (bool) runs an instantiation of its own
+    flags = torch.from_numpy(gen.random((1, n)) < 0.5).to(DEV)
+    err = max(err, same_pairs(bitonic.sort_pairs_tile_tagged(k, tags, flags),
+                              bitonic.sort_pairs_tile_tagged_plain(k, tags, flags), "sort_pairs_tile_tagged int32/bool"))
+    print(f"kernel sort_pairs_tile_tagged (1, 2^19) int32/bool: "
+          f"{cuda_ms(lambda: bitonic.sort_pairs_tile_tagged(k, tags, flags), reps=21):.4f} ms")
     plain = cuda_ms(lambda: bitonic.sort_pairs_tile_tagged_plain(k, tags, idx), reps=3)
-    lib = cuda_ms(lambda: torch.sort(k, dim=-1))
+    lib = cuda_ms(lambda: torch.sort(k, dim=-1), reps=21)
     b, by = bound(2 * n * (4 + 4) + n, sort_comparisons([n]))
     rows["sort_pairs_tile_tagged"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
         replaces="src/repro/kernels/bitonic.py:212", max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-        shape="(1, 2^19) int32/int32",
+        shape="(1, 2^19) int32/int32", device_ms=tiers.get("device_ms"),
+        launches_per_call=tiers.get("launches"),
     )
 
     # K6 at (64, 8192) int32/int32, random lengths, garbage in the pads.
@@ -390,7 +493,7 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
         fail("a row past one block did not go through the multi-pass pair kernel")
     ms = cuda_ms(lambda: batched.batched_row_sort_pairs(x, xv, lens))
     # the event time above includes the wrapper's host work; this is the kernel's own
-    profile_request("batched_row_sort_pairs (64, 8192)", lambda: batched.batched_row_sort_pairs(x, xv, lens))
+    k6_device = profile_request("batched_row_sort_pairs (64, 8192)", lambda: batched.batched_row_sort_pairs(x, xv, lens))
     plain = cuda_ms(lambda: batched.batched_row_sort_pairs_plain(x, xv, lens), reps=3)
     lib = cuda_ms(lambda: torch.sort(x, dim=-1))
     valid = int(lens.sum())
@@ -399,10 +502,10 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
         route="cuda", source="src/repro_torch/kernels/csrc/batched.cu",
         replaces="src/repro/kernels/batched.py:181", max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-        shape="(64, 8192) int32/int32",
+        shape="(64, 8192) int32/int32", device_ms=k6_device,
     )
 
-    # K7 at 2^19: the untagged pair sort.
+    # K7 at 2^19: the untagged pair sort (its tier boundaries ran above).
     got = bitonic.sort_pairs_tile(k, idx)
     err = same_pairs(got, bitonic.sort_pairs_tile_plain(k, idx), "sort_pairs_tile 2^19")
     if not torch.equal(got[0], torch.sort(k).values) or not torch.equal(k[0, got[1][0].long()], got[0][0]):
@@ -411,15 +514,17 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
         y = random_keys((4, 4096), TORCH_KEY[name], gen)
         v = payload((4, 4096), torch.int16, gen)
         err = max(err, same_pairs(bitonic.sort_pairs_tile(y, v), bitonic.sort_pairs_tile_plain(y, v), f"sort_pairs_tile {name}"))
-    ms = cuda_ms(lambda: bitonic.sort_pairs_tile(k, idx))
+    ms = cuda_ms(lambda: bitonic.sort_pairs_tile(k, idx), reps=21)
+    tiers = launch_profile("sort_pairs_tile (1, 2^19) int32/int32", lambda: bitonic.sort_pairs_tile(k, idx))
     plain = cuda_ms(lambda: bitonic.sort_pairs_tile_plain(k, idx), reps=3)
-    lib = cuda_ms(lambda: torch.sort(k, dim=-1))
+    lib = cuda_ms(lambda: torch.sort(k, dim=-1), reps=21)
     b, by = bound(2 * n * (4 + 4), sort_comparisons([n]))
     rows["sort_pairs_tile"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
         replaces="src/repro/kernels/bitonic.py:195", max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-        shape="(1, 2^19) int32/int32",
+        shape="(1, 2^19) int32/int32", device_ms=tiers.get("device_ms"),
+        launches_per_call=tiers.get("launches"),
     )
     return rows
 
@@ -495,7 +600,7 @@ def main_path_sort() -> None:
         profile_request(f"SortEngine.sort int32 n={n}", lambda x=x: paper.sort(x))
 
 
-def profile_request(label: str, fn) -> None:
+def profile_request(label: str, fn) -> "float | None":
     """Device time by kernel and copy for one warm request, beside its wall
     time.  Only events on the card count (the CPU ops that launched them
     would count them twice), and the profiler's own buffer requests not."""
@@ -518,13 +623,14 @@ def profile_request(label: str, fn) -> None:
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"profile {label}: wall {wall * 1e3:.3f} ms, device time not visible to torch.profiler")
-        return
+        return None
     print(
         f"profile {label}: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / (wall * 1e3):.1f}% of wall)"
     )
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    return busy
 
 
 # ----------------------------------------------------------------- phase 4
@@ -786,7 +892,9 @@ def main() -> None:
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "checked": "phase 2, bit for bit against the plain version",
+            "library_ms": r["library_ms"], "device_ms": r.get("device_ms"),
+            "launches_per_call": r.get("launches_per_call"),
+            "checked": "phase 2, bit for bit against the plain version",
         })
     print("card:", smi())
     print(json.dumps({"kernels": kernels}))

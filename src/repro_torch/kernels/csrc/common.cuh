@@ -139,6 +139,13 @@ __global__ void smem_stages(const T* in, T* out, Segs g, const int* seg_lens, in
 // and K7 (untagged).  Three struct-of-arrays streams: the key K, a
 // one-byte validity tag (0 = real, 1 = pad), and the payload moved as raw
 // bits V (uint8_t … uint64_t), so any payload dtype travels unchanged.
+// K6 runs smem_stages_pairs below, one block a row.  K5 and K7 run the
+// tiered schedule of bitonic.cu: registers, warp shuffles, a block's
+// shared memory, then device-memory windows of three distances; at
+// (1, 2^19) int32/int32 that is 24 launches (PERF.md has their time on
+// the card), the bound 0.0027 ms by bytes.
+// They share pair_bytes with K6, and keep pair_swap's rule in fewer
+// instructions.
 //
 // The compare is the reference's (_compare_exchange_tagged in
 // src/repro/kernels/bitonic.py): a > b when (ta > tb) or (ta == tb and
@@ -146,6 +153,10 @@ __global__ void smem_stages(const T* in, T* out, Segs g, const int* seg_lens, in
 // swap.  (tag, key) is never packed into one wider integer: for float keys
 // a packed bit pattern would order -0.0 before +0.0 and swap where the
 // reference does not.  Untagged (K7) is the same rule with every tag 0.
+// Because a swap is a fixed function of the two pairs, any schedule that
+// applies every stage (s, j) to every pair (i, i + 2^j) in stage order,
+// with the direction from bit s+1 of i's index in its row, gives the
+// same bytes, tie order included.
 template <typename K, bool TAGGED>
 __device__ __forceinline__ bool pair_swap(K ka, K kb, uint8_t ta, uint8_t tb, bool asc) {
   bool gt, lt;
@@ -165,44 +176,9 @@ constexpr int pair_bytes() {
   return (int)(sizeof(K) + sizeof(V)) + (TAGGED ? 1 : 0);
 }
 
-// One stage (s, j) of a pair sort over every segment, in device memory.
-// A pair is written back only when it swaps.
-template <typename K, typename V, bool TAGGED>
-__global__ void global_stage_pairs(K* keys, uint8_t* tags, V* vals, Segs g, long long n_segs,
-                                   int s, int j) {
-  const long long half = 1LL << (g.log_seg - 1);
-  const long long total = n_segs * half;
-  const long long d = 1LL << j;
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
-       p += (long long)gridDim.x * blockDim.x) {
-    const long long seg = p >> (g.log_seg - 1);
-    const long long q = p & (half - 1);
-    const long long i = ((q >> j) << (j + 1)) | (q & (d - 1));
-    const long long ia = seg_offset(g, seg) + i;
-    const long long ib = ia + d;
-    const K ka = keys[ia];
-    const K kb = keys[ib];
-    uint8_t ta = 0, tb = 0;
-    if constexpr (TAGGED) {
-      ta = tags[ia];
-      tb = tags[ib];
-    }
-    if (pair_swap<K, TAGGED>(ka, kb, ta, tb, ((i >> (s + 1)) & 1) == 0)) {
-      keys[ia] = kb;
-      keys[ib] = ka;
-      if constexpr (TAGGED) {
-        tags[ia] = tb;
-        tags[ib] = ta;
-      }
-      const V va = vals[ia];
-      vals[ia] = vals[ib];
-      vals[ib] = va;
-    }
-  }
-}
-
-// The pair twin of smem_stages: stages s_lo..s_hi for every distance
-// below the chunk, in shared memory (keys, then payloads, then tags).
+// The pair twin of smem_stages (K6 instantiates it with FILL): stages
+// s_lo..s_hi for every distance below the chunk, in shared memory (keys,
+// then payloads, then tags).
 // Without FILL the tags come from `tin`, and go back to `tout` when it is
 // not null (a multi-pass sort keeps them between passes).  With FILL (K6,
 // one chunk per segment) the tag is computed on load as

@@ -86,23 +86,36 @@ def _card_payload(rng, shape, dtype, device):
     return torch.from_numpy(rng.integers(-(2**62), 2**62, shape)).to(bits).view(dtype).to(device)
 
 
+# Row lengths at every boundary of the pair sort's tiers (csrc/bitonic.cu):
+# within one warp, one warp, one block's 2,048-pair chunk, two and four
+# chunks (the first lengths with device-memory windows), longer rows, and
+# full width.
+PAIR_SIZES = (128, 256, 2048, 4096, 8192, 1 << 15, 1 << 16, 1 << 19)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("ties", (False, True), ids=("spread", "heavy_ties"))
+@pytest.mark.parametrize("n", PAIR_SIZES)
 @pytest.mark.parametrize("dtype", (np.int8, np.int16, np.int32, np.int64, np.float32), ids=lambda d: np.dtype(d).name)
-def test_cuda_pair_sorts_match_plain(dtype, cuda_device, rng):
-    # K5 and K7, every payload width, one chunk and several device-memory passes
+def test_cuda_pair_sorts_match_plain(dtype, n, ties, cuda_device, rng):
+    # K5 and K7, every payload width; heavy ties draw keys from 16 values,
+    # where a wrong schedule shows as a wrong payload order
+    rows = 1 if n == 1 << 19 else 3
     for vdtype in (torch.bool, torch.bfloat16, torch.float32, torch.float64):
-        for n in (4096, 1 << 16):
-            k = _card_keys(rng, (3, n), dtype, cuda_device)
-            k[:, ::9] = torch.iinfo(k.dtype).max if not k.dtype.is_floating_point else float("inf")
-            v = _card_payload(rng, (3, n), vdtype, cuda_device)
-            t = torch.rand(3, n, device=cuda_device) < 0.3
-            bits = bitonic._BITS[v.element_size()]
-            got = bitonic.sort_pairs_tile_tagged(k, t, v)
-            want = bitonic.sort_pairs_tile_tagged_plain(k, t, v)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(bits), want[1].view(bits))
-            got = bitonic.sort_pairs_tile(k, v)
-            want = bitonic.sort_pairs_tile_plain(k, v)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(bits), want[1].view(bits))
+        if ties:
+            k = torch.from_numpy(rng.integers(0, 16, (rows, n)).astype(dtype)).to(cuda_device)
+        else:
+            k = _card_keys(rng, (rows, n), dtype, cuda_device)
+        k[:, ::9] = torch.iinfo(k.dtype).max if not k.dtype.is_floating_point else float("inf")
+        v = _card_payload(rng, (rows, n), vdtype, cuda_device)
+        t = torch.rand(rows, n, device=cuda_device) < 0.3
+        bits = bitonic._BITS[v.element_size()]
+        got = bitonic.sort_pairs_tile_tagged(k, t, v)
+        want = bitonic.sort_pairs_tile_tagged_plain(k, t, v)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(bits), want[1].view(bits))
+        got = bitonic.sort_pairs_tile(k, v)
+        want = bitonic.sort_pairs_tile_plain(k, v)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1].view(bits), want[1].view(bits))
 
 
 @pytest.mark.cuda

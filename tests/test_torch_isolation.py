@@ -14,7 +14,10 @@ import torch
 from repro_torch.core import SortEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "tools" / "pair_chunk_times.py",
+]
 
 
 def _env():
