@@ -9,10 +9,13 @@ no result line):
    from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. every kernel against its plain torch version on the card, bit for bit,
    at the main path's shapes, with CUDA-event times beside the bound, the
-   plain version's time and the library sort's; the pair sorts K5 and K7
-   also at every boundary of their tiers (128 to 2^19 pairs, 1 and 3
-   rows, heavy ties, int64 keys with float64 payloads), with the device
-   time of each of their launches from ``torch.profiler``;
+   plain version's time and the library sort's; the tile sort K2 also at
+   every boundary of its tiers (128 to 2^20 keys, 1, 3 and 36 rows, five
+   key dtypes, heavy ties, float32 signed zeros) and timed at every shape
+   the main path hands it, and the pair sorts K5 and K7 at every boundary
+   of theirs (128 to 2^19 pairs, 1 and 3 rows, heavy ties, int64 keys with
+   float64 payloads), each with the device time of each of its launches
+   from ``torch.profiler``;
 3. the main path, ``SortEngine.sort``, against ``np.sort``: six dtypes x
    five distributions at n = 100,000, skewed inputs at 60,000 (sampled
    splitters, large capacities, a forced overflow), int64 keys spanning
@@ -59,6 +62,7 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import devtrace  # noqa: E402
 from repro_torch.core import OHHCTopology, SortEngine, SortPlan  # noqa: E402
 from repro_torch.data import ALL_DISTRIBUTIONS, make_array  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -184,30 +188,7 @@ def kernel_checks() -> dict:
     gen = np.random.default_rng(0)
     rows = {}
 
-    # K2 sort_tile: the main path's (P, capacity) rows at 15.7M keys.
-    x = random_keys((36, 1 << 20), torch.int32, gen)
-    err = same(bitonic.sort_tile(x), bitonic.sort_tile_plain(x), "sort_tile (36, 2^20)")
-    if not torch.equal(bitonic.sort_tile(x), ref.ref_sort(x)):
-        fail("sort_tile disagrees with torch.sort")
-    for name in DTYPES:
-        if name == "uint32":
-            continue  # reaches the kernels as int32 (repro_torch.dtypes)
-        y = random_keys((36, 4096), TORCH_KEY[name], gen)
-        err = max(err, same(bitonic.sort_tile(y), bitonic.sort_tile_plain(y), f"sort_tile {name}"))
-    # the tiles SortEngine.sort hands it at 2^22 and 15,728,640 keys
-    for shape in ((36, 1 << 18), (72, 1 << 19)):
-        y = random_keys(shape, torch.int32, gen)
-        err = max(err, same(bitonic.sort_tile(y), bitonic.sort_tile_plain(y), f"sort_tile {shape}"))
-    ms = cuda_ms(lambda: bitonic.sort_tile(x))
-    plain = cuda_ms(lambda: bitonic.sort_tile_plain(x), reps=3)
-    lib = cuda_ms(lambda: torch.sort(x, dim=-1))
-    b, by = bound(2 * x.numel() * 4, sort_comparisons([x.shape[1]] * x.shape[0]))
-    rows["sort_tile"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
-        replaces="src/repro/kernels/bitonic.py:179", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-        shape="(36, 2^20) int32",
-    )
+    rows["sort_tile"] = tile_kernel_checks(gen)
 
     # K3 merge_tiles: two sorted 2^19 tiles.
     n = 1 << 19
@@ -351,46 +332,105 @@ def pair_keys(shape, heavy_ties: bool, gen: np.random.Generator) -> torch.Tensor
     return random_keys(shape, torch.int32, gen)
 
 
-def launch_profile(label: str, fn, reps: int = 5) -> dict:
-    """Device time of each kernel launch of one call of ``fn`` (one trace a
-    call, median over ``reps`` calls), summed by the pair sort's launch
-    kinds: the first chunk launch (every stage whose distances fit one
-    chunk: registers, warp shuffles, shared memory), the later chunk
-    launches (one stage's distances below the chunk each) and the device
-    windows (up to three longer distances each, through device memory)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def launch_profile(label: str, fn, kind: str, reps: int = 5) -> dict:
+    """Device time of each kernel launch of one call of ``fn`` (``reps``
+    calls traced in one profiler session, median over the calls), summed
+    by the launch kinds of a tiered sort, whose kernel names start with
+    ``kind`` (``pair_`` for K5 and K7, ``key_`` for K2): the first chunk
+    launch (every stage whose distances fit one chunk: registers, warp
+    shuffles, shared memory), the later chunk launches (one stage's
+    distances below the chunk each) and the device windows (several longer
+    distances each, through device memory).  Every call must show the same
+    launches in the same order, else nothing is reported."""
     fn()
     torch.cuda.synchronize()
-    calls = []
-    for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        calls.append([
-            (e.name, e.device_time_total / 1e3) for e in prof.events()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0 and "pair_" in e.name
-        ])
-    counts = [len(c) for c in calls]
-    per = max(set(counts), key=counts.count)
-    calls = [c for c in calls if len(c) == per]
-    if per == 0 or 2 * len(calls) <= reps:
-        print(f"tiers {label}: kernel launches not visible to torch.profiler")
+    calls = devtrace.call_events(fn, reps) or []
+    calls = [[(n, t) for n, t in c if kind in n] for c in calls]
+    names = [n for n, _ in calls[0]] if calls else []
+    if not names or any([n for n, _ in c] != names for c in calls):
+        print(f"tiers {label}: launches {[len(c) for c in calls]} in {reps} calls, not the same each call")
         return {}
     ms = np.median(np.array([[t for _, t in c] for c in calls]), axis=0)
-    names = [n for n, _ in calls[0]]
-    chunk = [t for n, t in zip(names, ms) if "pair_chunk" in n]
-    window = [t for n, t in zip(names, ms) if "pair_device" in n]
-    out = dict(device_ms=float(ms.sum()), launches=per, first_ms=float(chunk[0]) if chunk else 0.0,
+    chunk = [t for n, t in zip(names, ms) if f"{kind}chunk" in n]
+    window = [t for n, t in zip(names, ms) if f"{kind}device" in n]
+    out = dict(device_ms=float(ms.sum()), launches=len(names), first_ms=float(chunk[0]) if chunk else 0.0,
                later_chunks=len(chunk) - 1, later_ms=float(sum(chunk[1:])), windows=len(window),
                window_ms=float(sum(window)))
     print(
-        f"tiers {label}: {per} launches, {out['device_ms']:.4f} ms on the card = first chunk launch "
+        f"tiers {label}: {len(names)} launches, {out['device_ms']:.4f} ms on the card = first chunk launch "
         f"{out['first_ms']:.4f} ms + {out['later_chunks']} chunk launches {out['later_ms']:.4f} ms "
         f"+ {out['windows']} device windows {out['window_ms']:.4f} ms"
     )
     return out
+
+
+# Row lengths at every boundary of the tile sort's tiers (csrc/bitonic.cu:
+# 16 keys a thread, 32 KiB chunks): 128 keys (a partial warp), one warp's
+# 512, one chunk of int64 (2^12), int32 (2^13) and int8/int16 (2^14), two
+# and four chunks (the first device windows), 2^17 and 2^18 (where a stage
+# first takes two device windows for int64 and int32), 2^19 (for
+# int8/int16) and 2^20.
+TILE_SIZES = (128, 512, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
+# The rows the main path hands K2: SortEngine.sort at 2^20 keys a row
+# (the shape of the kernels line, kept comparable with earlier runs), at
+# 15,728,640 keys, at 2^22 keys and at 2^22 on the 144-processor OHHC;
+# top_k's kept rows at k = n/2; long-row sort_segments.
+TILE_SHAPES = ((36, 1 << 20), (72, 1 << 19), (36, 1 << 18), (144, 1 << 17), (32, 1 << 19), (2304, 4096))
+
+
+def tile_keys(shape, dtype: torch.dtype, case: str, gen: np.random.Generator) -> torch.Tensor:
+    """Keys over the whole type, drawn from 16 values (heavy ties), or
+    float32 keys about half of them -0.0 or +0.0 (signed zeros)."""
+    if case == "heavy_ties":
+        return torch.from_numpy(gen.integers(0, 16, shape)).to(dtype).to(DEV)
+    x = random_keys(shape, dtype, gen)
+    if case == "signed_zeros":
+        zero = torch.from_numpy(gen.random(shape) < 0.5).to(DEV)
+        neg = torch.from_numpy(gen.random(shape) < 0.5).to(DEV)
+        x = torch.where(zero, torch.where(neg, -torch.zeros_like(x), torch.zeros_like(x)), x)
+    return x
+
+
+def tile_kernel_checks(gen: np.random.Generator) -> dict:
+    """K2 bit for bit against its plain version at every tier boundary
+    (1, 3 and 36 rows; 36 up to 2^16 keys a row), every key dtype, heavy
+    ties and signed zeros, then at the main path's shapes, each timed by
+    events and by device time beside torch.sort over the same rows."""
+    err, batches = 0.0, 0
+    for name in ("int8", "int16", "int32", "int64", "float32"):
+        for case in ("spread", "heavy_ties") + (("signed_zeros",) if name == "float32" else ()):
+            for n in TILE_SIZES:
+                for nrows in (1, 3, 36) if n <= 1 << 16 else (1, 3):
+                    x = tile_keys((nrows, n), TORCH_KEY[name], case, gen)
+                    err = max(err, same(bitonic.sort_tile(x), bitonic.sort_tile_plain(x), f"sort_tile {name} {case} ({nrows}, {n})"))
+                    batches += 1
+    print(f"sort_tile: {batches} batches at every tier boundary equal the plain version bit for bit")
+    timed = {}
+    for shape in TILE_SHAPES:
+        x = tile_keys(shape, torch.int32, "spread", gen)
+        got = bitonic.sort_tile(x)
+        err = max(err, same(got, bitonic.sort_tile_plain(x), f"sort_tile {shape}"))
+        if not torch.equal(got, ref.ref_sort(x)):
+            fail(f"sort_tile {shape} disagrees with torch.sort")
+        ms = cuda_ms(lambda: bitonic.sort_tile(x), reps=11)
+        lib = cuda_ms(lambda: torch.sort(x, dim=-1), reps=11)
+        tiers = launch_profile(f"sort_tile {shape} int32", lambda: bitonic.sort_tile(x), "key_")
+        b, by = bound(2 * x.numel() * 4, sort_comparisons([x.shape[1]] * x.shape[0]))
+        print(f"kernel sort_tile {shape} int32: {ms:.4f} ms by events, device {tiers.get('device_ms')} ms, "
+              f"{tiers.get('launches')} launches, torch.sort {lib:.4f} ms, bound {b:.4f} ms")
+        timed[shape] = x, ms, lib, tiers, b, by
+    # a float32 batch at 15,728,640 keys with signed zeros through the windows
+    y = tile_keys((72, 1 << 19), torch.float32, "signed_zeros", gen)
+    err = max(err, same(bitonic.sort_tile(y), bitonic.sort_tile_plain(y), "sort_tile (72, 2^19) float32 signed zeros"))
+    x, ms, lib, tiers, b, by = timed[TILE_SHAPES[0]]
+    plain = cuda_ms(lambda: bitonic.sort_tile_plain(x), reps=3)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
+        replaces="src/repro/kernels/bitonic.py:179", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        shape="(36, 2^20) int32", device_ms=tiers.get("device_ms"),
+        launches_per_call=tiers.get("launches"),
+    )
 
 
 def pair_kernel_checks(gen: np.random.Generator) -> dict:
@@ -447,7 +487,7 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
     ms = cuda_ms(lambda: bitonic.sort_pairs_tile_tagged(k, tags, idx), reps=21)
     # the event time includes the wrapper's host work; this is the card's
     tiers = launch_profile("sort_pairs_tile_tagged (1, 2^19) int32/int32",
-                           lambda: bitonic.sort_pairs_tile_tagged(k, tags, idx))
+                           lambda: bitonic.sort_pairs_tile_tagged(k, tags, idx), "pair_")
     # a one-byte payload (bool) runs an instantiation of its own
     flags = torch.from_numpy(gen.random((1, n)) < 0.5).to(DEV)
     err = max(err, same_pairs(bitonic.sort_pairs_tile_tagged(k, tags, flags),
@@ -515,7 +555,7 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
         v = payload((4, 4096), torch.int16, gen)
         err = max(err, same_pairs(bitonic.sort_pairs_tile(y, v), bitonic.sort_pairs_tile_plain(y, v), f"sort_pairs_tile {name}"))
     ms = cuda_ms(lambda: bitonic.sort_pairs_tile(k, idx), reps=21)
-    tiers = launch_profile("sort_pairs_tile (1, 2^19) int32/int32", lambda: bitonic.sort_pairs_tile(k, idx))
+    tiers = launch_profile("sort_pairs_tile (1, 2^19) int32/int32", lambda: bitonic.sort_pairs_tile(k, idx), "pair_")
     plain = cuda_ms(lambda: bitonic.sort_pairs_tile_plain(k, idx), reps=3)
     lib = cuda_ms(lambda: torch.sort(k, dim=-1), reps=21)
     b, by = bound(2 * n * (4 + 4), sort_comparisons([n]))
@@ -602,34 +642,34 @@ def main_path_sort() -> None:
 
 def profile_request(label: str, fn) -> "float | None":
     """Device time by kernel and copy for one warm request, beside its wall
-    time.  Only events on the card count (the CPU ops that launched them
-    would count them twice), and the profiler's own buffer requests not."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    time (``repro_torch.devtrace``: only events on the card count)."""
     fn()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def timed_request():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key == "Activity Buffer Request":
-            continue
-        if e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total / 1e3, e.count, e.key))
-    busy = sum(r[0] for r in rows)
-    if not rows:
+        walls.append(time.perf_counter() - t0)
+
+    calls = devtrace.call_events(timed_request, 1)
+    wall = walls[0]
+    if not calls or not calls[0]:
         print(f"profile {label}: wall {wall * 1e3:.3f} ms, device time not visible to torch.profiler")
         return None
+    by_name: dict[str, list] = {}
+    for name, ms in calls[0]:
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += ms
+        row[1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
     print(
         f"profile {label}: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / (wall * 1e3):.1f}% of wall)"
     )
-    for ms, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"    {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms:9.3f} ms  x{count:<4d} {name[:90]}")
     return busy
 
 

@@ -13,18 +13,29 @@
 //                      (tag, key) when tagged.
 //
 // What bounds it on an H100: a sort must read the keys once and write
-// them once; for a (36, 2^20) int32 batch that is 302 MB, 0.09 ms at
-// 3.35 TB/s, while the comparisons a sort needs (about n log2 n, 7.5e8)
-// take 0.011 ms at 67 Tops/s, so bytes bound it.  The network does more
-// than a sort needs: log2(n)(log2(n)+1)/2 passes over the keys, 3.96e9
-// compare-exchanges, which stay near that bound only while the passes stay
-// on chip.  The TPU kernel kept a whole 2 MiB
-// tile in VMEM; one block's shared memory holds far less.  So a block
-// sorts a 32 KiB chunk in shared memory, running every stage whose
-// distance is below the chunk; each longer distance costs one pass
-// through device memory (global_stage), followed by one shared-memory pass
-// that finishes that stage's short distances.  For n = 2^20 int32 that is
-// 28 device-memory passes and 8 shared-memory passes.
+// them once; for a (72, 2^19) int32 batch (SortEngine.sort's tiles at
+// 15.7M keys) that is 302 MB, 0.09 ms at 3.35 TB/s, while the comparisons
+// a sort needs (about n log2 n, 7.1e8) take 0.011 ms at 67 Tops/s, so
+// bytes bound it.  The network does more than a sort needs: 190 distances
+// at 2^19, each a pass over the keys, which stay near that bound only
+// while the passes stay on chip.  The TPU kernel kept a whole 2 MiB tile
+// in VMEM; one block's shared memory holds far less.  So the tile sort
+// (K2) runs the distances in tiers, each as close to the registers as the
+// distance allows:
+//   registers      a thread holds 16 keys: distances 1 .. 8 run with no
+//                  memory traffic and no barrier;
+//   warp           distances 16 .. 256 by __shfl_xor_sync between lanes;
+//   shared memory  distances 512 .. 4096 in a block's 32 KiB chunk (8,192
+//                  int32 keys), four distances a round trip and a barrier;
+//   device memory  longer distances in windows of four: a thread loads 16
+//                  keys at the window's stride, coalesced, and stores them
+//                  back.
+// One launch sorts every chunk; each later stage is its device windows,
+// then one launch for its distances below the chunk: 15 launches at
+// (72, 2^19) int32, 18 at (36, 2^20).  The merge (K3) keeps the first
+// schedule of the port: a 32 KiB chunk sorted in shared memory one
+// compare-exchange a thread per barrier (rt::smem_stages), and one pass
+// through device memory a longer distance (rt::global_stage).
 //
 // The pair sort (K5, K7) moves three streams: keys, a one-byte tag (K5
 // only) and the payload as raw bits.  Its bound at argsort_keys' full
@@ -57,7 +68,7 @@
 
 namespace {
 
-// 32 KiB of keys per shared-memory chunk.
+// 32 KiB of keys per shared-memory chunk of the merge (K3).
 template <typename T>
 constexpr int log_chunk_max() {
   return sizeof(T) == 1 ? 15 : sizeof(T) == 2 ? 14 : sizeof(T) == 4 ? 13 : 12;
@@ -88,26 +99,6 @@ __global__ void merge_first(T* base, rt::Segs g, long long n_segs) {
     x[i2] = a1;
     x[m + i2] = b1;
   }
-}
-
-template <typename T>
-int sort_rows(const void* in, void* out, long long rows, int log_n, cudaStream_t st) {
-  const int log_c = log_n < log_chunk_max<T>() ? log_n : log_chunk_max<T>();
-  const rt::Segs g{1LL << log_n, 1, log_n};
-  const long long chunks = rows << (log_n - log_c);
-  const int threads = rt::threads_for(log_c);
-  const size_t smem = sizeof(T) << log_c;
-  T* o = static_cast<T*>(out);
-  rt::smem_stages<T, false, false><<<(unsigned)chunks, threads, smem, st>>>(
-      static_cast<const T*>(in), o, g, nullptr, log_c, 0, log_c - 1, 31);
-  for (int s = log_c; s < log_n; ++s) {
-    for (int j = s; j >= log_c; --j) {
-      rt::global_stage<T><<<rt::grid_for(rows << (log_n - 1), 256), 256, 0, st>>>(o, g, rows, s, j);
-    }
-    rt::smem_stages<T, false, false><<<(unsigned)chunks, threads, smem, st>>>(
-        o, o, g, nullptr, log_c, s, s, log_c - 1);
-  }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -304,11 +295,12 @@ __device__ __forceinline__ unsigned slot(unsigned i) {
   return i ^ (((i >> (2 * kLogE)) & ((1u << (5 - kLogE)) - 1)) << kLogE);
 }
 
-// Thread u's held pair 0 in a window with register bits jb .. jb+kLogE-1:
-// u with those bits opened up (cleared) in its binary form.
-template <typename U>
+// Thread u's held pair 0 in a window with register bits jb .. jb+LOG_E-1
+// (the tile sort holds 2^LOG_E keys, the pair sort kE pairs): u with
+// those bits opened up (cleared) in its binary form.
+template <int LOG_E = kLogE, typename U>
 __device__ __forceinline__ U spread(U u, int jb) {
-  return ((u >> jb) << (jb + kLogE)) | (u & ((U(1) << jb) - 1));
+  return ((u >> jb) << (jb + LOG_E)) | (u & ((U(1) << jb) - 1));
 }
 
 // A run of kE tags, widened on load and narrowed on store.
@@ -493,6 +485,313 @@ int sort_pairs_rows(const void* keys, const void* tags, const void* vals, void* 
     }
     pair_chunk_stages<K, V, TAGGED><<<blocks, threads, smem, st>>>(ok, ot, ov, ok, ot, ov, log_n, log_c,
                                                                    s, s, vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ the tile sort (K2)
+// The pair sort's tiers for keys alone.  With no payload and no tag a
+// thread holds 16 keys (four register distances) and a block's chunk
+// holds 32 KiB of keys: 8,192 int32 keys, 512 threads.  In the home layout
+// a thread holds 2^LOG_E consecutive keys (LOG_E = key_log_e<T>()); a
+// window over distances 2^jb .. 2^(jb+LOG_E-1) holds the keys
+// base + (r << jb), base with those bits clear.  As for the pairs, the
+// direction bit always comes from the key's index in its row and every
+// stage (s, j) meets every pair (i, i + 2^j) in stage order, each pair
+// left as rt::cmp_xchg leaves it, so the bytes (where -0.0 and +0.0 land
+// included) are the plain network's.  16 keys beat 8 and 32, and 32 KiB
+// chunks tied 64 KiB, timed through the wrapper (PERF.md).
+constexpr int kLogKeyE = 4;            // a thread holds 16 keys
+constexpr int kLogKeyChunkBytes = 15;  // a block holds 32 KiB of keys
+
+template <typename T>
+__host__ __device__ constexpr int log_size() {
+  return sizeof(T) == 1 ? 0 : sizeof(T) == 2 ? 1 : sizeof(T) == 4 ? 2 : 3;
+}
+
+// log2 of the keys a thread holds: kLogKeyE, raised where that would be
+// under one 16-byte word.
+template <typename T>
+__host__ __device__ constexpr int key_log_e() {
+  return kLogKeyE > 4 - log_size<T>() ? kLogKeyE : 4 - log_size<T>();
+}
+
+// log2 of the keys a block holds: kLogKeyChunkBytes of them, at most 1,024
+// threads.
+template <typename T>
+__host__ __device__ constexpr int key_log_chunk() {
+  constexpr int by_bytes = kLogKeyChunkBytes - log_size<T>();
+  return by_bytes < key_log_e<T>() + 10 ? by_bytes : key_log_e<T>() + 10;
+}
+
+template <typename T>
+__host__ __device__ constexpr int key_threads_max() {
+  return 1 << (key_log_chunk<T>() - key_log_e<T>());
+}
+
+// One compare-exchange of held keys, the pair left as rt::cmp_xchg<T,
+// false> leaves it.  Integer keys take min and max: where two keys tie
+// they are the same bits, so which one lands where cannot show.  Float
+// keys keep cmp_xchg's select on b < a, which decides where -0.0 and +0.0
+// land.
+template <typename T>
+__device__ __forceinline__ void key_cx(T& a, T& b, bool asc) {
+  if constexpr (std::is_integral<T>::value) {
+    const T mn = a < b ? a : b;
+    const T mx = a < b ? b : a;
+    a = asc ? mn : mx;
+    b = asc ? mx : mn;
+  } else {
+    rt::cmp_xchg<T, false>(a, b, asc);
+  }
+}
+
+// Distances 2^jhi down to 2^jlo of stage s on keys held with register bits
+// jb .. jb+LOG_E-1 (jb <= jlo <= jhi < jb + LOG_E): held key r meets
+// r + 2^(j-jb).  The direction is bit s+1 of the row index: bit RB of r
+// when RB = s+1-jb falls in the register bits (RB >= 0, known at compile
+// time), else `asc` for every held key.
+template <int BIT, int LOG_E, int RB, typename T>
+__device__ __forceinline__ void key_reg_stages_from(T (&k)[1 << LOG_E], bool asc, int jb, int jhi, int jlo) {
+  if constexpr (BIT >= 0) {
+    if (jlo <= jb + BIT && jb + BIT <= jhi) {
+#pragma unroll
+      for (int r = 0; r < (1 << LOG_E); ++r) {
+        if (r & (1 << BIT)) continue;
+        key_cx(k[r], k[r | (1 << BIT)], RB < 0 ? asc : ((r >> RB) & 1) == 0);
+      }
+    }
+    key_reg_stages_from<BIT - 1, LOG_E, RB>(k, asc, jb, jhi, jlo);
+  }
+}
+
+template <int LOG_E, int RB, typename T>
+__device__ __forceinline__ void key_reg_stages_rb(T (&k)[1 << LOG_E], int rb, int jb, int jhi, int jlo) {
+  if constexpr (RB < LOG_E) {
+    if (rb == RB) {
+      key_reg_stages_from<LOG_E - 1, LOG_E, RB>(k, true, jb, jhi, jlo);
+    } else {
+      key_reg_stages_rb<LOG_E, RB + 1>(k, rb, jb, jhi, jlo);
+    }
+  }
+}
+
+// The same with held key 0 at row index g0 (bits jb .. jb+LOG_E-1 clear).
+template <int LOG_E, typename T>
+__device__ __forceinline__ void key_reg_stages(T (&k)[1 << LOG_E], unsigned g0, int jb, int s, int jhi,
+                                               int jlo) {
+  const int rb = s + 1 - jb;
+  if (rb < 0 || rb >= LOG_E) {
+    key_reg_stages_from<LOG_E - 1, LOG_E, -1>(k, ((g0 >> (s + 1)) & 1) == 0, jb, jhi, jlo);
+  } else {
+    key_reg_stages_rb<LOG_E, 0>(k, rb, jb, jhi, jlo);
+  }
+}
+
+// Distance 2^j, LOG_E <= j < LOG_E + 5, in the home layout: held key r of
+// lane l meets held key r of lane l ^ 2^(j-LOG_E), and each lane keeps
+// what key_cx leaves on its side: the lower lane a, the upper lane b.
+template <int LOG_E, typename T>
+__device__ __forceinline__ void key_warp_stage(T (&k)[1 << LOG_E], unsigned g0, int s, int j, unsigned mask,
+                                               int lane) {
+  const int m = 1 << (j - LOG_E);
+  const bool upper = (lane & m) != 0;
+  const bool asc = ((g0 >> (s + 1)) & 1) == 0;
+  const bool keep_min = asc != upper;
+#pragma unroll
+  for (int r = 0; r < (1 << LOG_E); ++r) {
+    const T p = shfl_xor(mask, k[r], m);
+    if constexpr (std::is_integral<T>::value) {
+      k[r] = keep_min ? (p < k[r] ? p : k[r]) : (p < k[r] ? k[r] : p);
+    } else {
+      // cmp_xchg's select on b < a with (a, b) = (lower's, upper's) key
+      const bool b_lt_a = upper ? k[r] < p : p < k[r];
+      k[r] = (b_lt_a == (keep_min != upper)) ? p : k[r];
+    }
+  }
+}
+
+// Where key i of a chunk sits in shared memory.  A home run is 2^lw whole
+// 16-byte words (2^lv keys each); the low bits of a word's index are
+// flipped by the bits of its thread that the 8 word-wide bank groups do
+// not see, so eight neighbouring threads' home words (one pass over the 32
+// banks) fall on distinct banks.  Words stay whole, and a window's lanes,
+// which touch 32 consecutive keys, stay on distinct banks.
+template <typename T, int LOG_E>
+__device__ __forceinline__ unsigned key_slot(unsigned i) {
+  constexpr int lv = 4 - log_size<T>();
+  constexpr int lw = LOG_E - lv;
+  constexpr int flip_bits = lw < 3 ? lw : 3;
+  constexpr int from = lw > 3 ? lw : 3;
+  return i ^ (((i >> (lv + from)) & ((1u << flip_bits) - 1)) << lv);
+}
+
+// The home run of a thread: N consecutive keys, N * sizeof(T) a multiple
+// of 16 bytes, as 16-byte words when `vec` (p aligned), one by one
+// otherwise.  Each word is unpacked on its own, so the keys stay in
+// registers.
+template <typename T, int N>
+__device__ __forceinline__ void key_load_run(const T* p, T (&k)[N], bool vec) {
+  constexpr int V = 16 / (int)sizeof(T);
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < N / V; ++i) {
+      const uint4 w = reinterpret_cast<const uint4*>(p)[i];
+      memcpy(&k[i * V], &w, 16);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < N; ++r) k[r] = p[r];
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void key_store_run(T* p, const T (&k)[N], bool vec) {
+  constexpr int V = 16 / (int)sizeof(T);
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < N / V; ++i) {
+      uint4 w;
+      memcpy(&w, &k[i * V], 16);
+      reinterpret_cast<uint4*>(p)[i] = w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < N; ++r) p[r] = k[r];
+  }
+}
+
+// A home run in the chunk, word by word at their swizzled slots.
+template <typename T, int LOG_E>
+__device__ __forceinline__ void key_load_home(const T* sm, unsigned home, T (&k)[1 << LOG_E]) {
+  constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int i = 0; i < (1 << LOG_E) / V; ++i) {
+    const uint4 w = *reinterpret_cast<const uint4*>(sm + key_slot<T, LOG_E>(home + i * V));
+    memcpy(&k[i * V], &w, 16);
+  }
+}
+
+template <typename T, int LOG_E>
+__device__ __forceinline__ void key_store_home(T* sm, unsigned home, const T (&k)[1 << LOG_E]) {
+  constexpr int V = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int i = 0; i < (1 << LOG_E) / V; ++i) {
+    uint4 w;
+    memcpy(&w, &k[i * V], 16);
+    *reinterpret_cast<uint4*>(sm + key_slot<T, LOG_E>(home + i * V)) = w;
+  }
+}
+
+// Distances 2^jhi .. 2^jlo of stage s in a block's chunk, register bits
+// jb .. jb+LOG_E-1; thread t holds the keys spread(t, jb) + (r << jb).
+template <typename T, int LOG_E>
+__device__ __forceinline__ void key_smem_window(T* sm, unsigned t, int jb, int jhi, int jlo,
+                                                unsigned chunk_base, int s) {
+  const unsigned base = spread<LOG_E>(t, jb);
+  T k[1 << LOG_E];
+#pragma unroll
+  for (int r = 0; r < (1 << LOG_E); ++r) k[r] = sm[key_slot<T, LOG_E>(base + ((unsigned)r << jb))];
+  key_reg_stages<LOG_E>(k, chunk_base + base, jb, s, jhi, jlo);
+#pragma unroll
+  for (int r = 0; r < (1 << LOG_E); ++r) sm[key_slot<T, LOG_E>(base + ((unsigned)r << jb))] = k[r];
+}
+
+// Stages s_lo .. s_hi of every chunk of 2^log_c keys, one chunk a block,
+// every distance below the chunk: shared-memory windows of LOG_E distances
+// a barrier, then warp shuffles, then registers.  Reads `in`, writes `out`
+// (they may alias).
+template <typename T>
+__global__ void __launch_bounds__(key_threads_max<T>())
+    key_chunk_stages(const T* in, T* out, int log_n, int log_c, int s_lo, int s_hi, bool vec) {
+  constexpr int LOG_E = key_log_e<T>();
+  constexpr int E = 1 << LOG_E;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const unsigned mask = blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1;
+  const int shift = log_n - log_c;
+  const long long row = (long long)blockIdx.x >> shift;
+  const unsigned chunk_base = (blockIdx.x & ((1u << shift) - 1)) << log_c;
+  // the shared-memory windows stop at 2^log_w; shuffles take the rest down to 2^LOG_E
+  const int log_w = log_c < LOG_E + 5 ? log_c : LOG_E + 5;
+  const unsigned home = E * t;
+  const unsigned g0 = chunk_base + home;  // home: keys g0 .. g0 + E - 1 of the row
+  const long long off = (row << log_n) + g0;
+
+  T k[E];
+  key_load_run(in + off, k, vec);
+  for (int s = s_lo; s <= s_hi; ++s) {
+    int j = s < log_c - 1 ? s : log_c - 1;
+    if (j >= log_w) {
+      key_store_home<T, LOG_E>(sm, home, k);
+      __syncthreads();
+      while (j >= log_w) {
+        const int jlo = j - (LOG_E - 1) > log_w ? j - (LOG_E - 1) : log_w;
+        const int jb = jlo < log_c - LOG_E ? jlo : log_c - LOG_E;
+        key_smem_window<T, LOG_E>(sm, t, jb, j, jlo, chunk_base, s);
+        j = jlo - 1;
+        __syncthreads();
+      }
+      key_load_home<T, LOG_E>(sm, home, k);
+    }
+    for (; j >= LOG_E; --j) key_warp_stage<LOG_E>(k, g0, s, j, mask, lane);
+    key_reg_stages<LOG_E>(k, g0, 0, s, j, 0);
+  }
+  key_store_run(out + off, k, vec);
+}
+
+// Distances 2^jhi .. 2^jlo of stage s over every row, in place in device
+// memory: each thread loads 2^LOG_E keys at stride 2^jb (register bits
+// jb .. jb+LOG_E-1), runs the distances in registers and stores them back.
+// Neighbouring threads take neighbouring bases, so every access is
+// coalesced.
+template <typename T>
+__global__ void key_device_window(T* keys, long long rows, int log_n, int s, int jhi, int jlo, int jb) {
+  constexpr int LOG_E = key_log_e<T>();
+  const long long per_row = 1LL << (log_n - LOG_E);
+  const long long total = rows * per_row;
+  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
+       p += (long long)gridDim.x * blockDim.x) {
+    const long long base = spread<LOG_E>(p & (per_row - 1), jb);
+    T* x = keys + ((p >> (log_n - LOG_E)) << log_n) + base;
+    T k[1 << LOG_E];
+#pragma unroll
+    for (int r = 0; r < (1 << LOG_E); ++r) k[r] = x[(long long)r << jb];
+    key_reg_stages<LOG_E>(k, (unsigned)base, jb, s, jhi, jlo);
+#pragma unroll
+    for (int r = 0; r < (1 << LOG_E); ++r) x[(long long)r << jb] = k[r];
+  }
+}
+
+// The tile sort of K2.  One launch sorts every chunk (stages 0 ..
+// log_c-1); each longer stage s runs its distances past the chunk in
+// device-memory windows of LOG_E distances, then one chunk launch
+// finishes its shorter distances.
+template <typename T>
+int sort_rows(const void* in, void* out, long long rows, int log_n, cudaStream_t st) {
+  constexpr int LOG_E = key_log_e<T>();
+  if (log_n < LOG_E || log_n > 31) return (int)cudaErrorInvalidValue;
+  const int log_c = log_n < key_log_chunk<T>() ? log_n : key_log_chunk<T>();
+  const unsigned blocks = (unsigned)(rows << (log_n - log_c));
+  const int threads = 1 << (log_c - LOG_E);
+  const size_t smem = sizeof(T) << log_c;
+  const cudaError_t err = rt::allow_smem(key_chunk_stages<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  T* o = static_cast<T*>(out);
+  const bool vec = aligned16(in) && aligned16(out);
+  key_chunk_stages<T><<<blocks, threads, smem, st>>>(static_cast<const T*>(in), o, log_n, log_c, 0,
+                                                     log_c - 1, vec);
+  for (int s = log_c; s < log_n; ++s) {
+    for (int jhi = s; jhi >= log_c;) {
+      const int jlo = jhi - (LOG_E - 1) > log_c ? jhi - (LOG_E - 1) : log_c;
+      const int jb = jlo < log_n - LOG_E ? jlo : log_n - LOG_E;
+      key_device_window<T><<<rt::grid_for(rows << (log_n - LOG_E), 256), 256, 0, st>>>(o, rows, log_n, s,
+                                                                                     jhi, jlo, jb);
+      jhi = jlo - 1;
+    }
+    key_chunk_stages<T><<<blocks, threads, smem, st>>>(o, o, log_n, log_c, s, s, vec);
   }
   return (int)cudaGetLastError();
 }

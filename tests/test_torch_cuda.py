@@ -33,17 +33,72 @@ def _card_keys(rng, shape, dtype, device):
     return torch.from_numpy(_keys(rng, shape, dtype)).to(device)
 
 
+def _bits(t):
+    # keys compared through their integer bit view: torch.equal counts
+    # -0.0 equal to +0.0
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (np.int8, np.int16, np.int32, np.int64, np.float32), ids=lambda d: np.dtype(d).name)
 def test_cuda_sort_and_merge_match_plain(dtype, cuda_device, rng):
     x = _card_keys(rng, (5, 1 << 15), dtype, cuda_device)
     got = bitonic.sort_tile(x)
-    assert torch.equal(got, bitonic.sort_tile_plain(x))
+    assert torch.equal(_bits(got), _bits(bitonic.sort_tile_plain(x)))
     tiles = got.view(5, 4, 1 << 13).contiguous()
     want = tiles.clone()
     bitonic.merge_tile_pairs(tiles, 0)
     bitonic.merge_tile_pairs_plain(want, 0)
-    assert torch.equal(tiles, want)
+    assert torch.equal(_bits(tiles), _bits(want))
+
+
+# Row lengths at every boundary of the tile sort's tiers (csrc/bitonic.cu:
+# 16 keys a thread, 32 KiB chunks): 128 keys (a partial warp), one warp's
+# 512, one chunk of int64 (2^12), int32 (2^13) and int8/int16 (2^14), two
+# and four chunks (the first device windows), 2^17 and 2^18 (where a
+# stage first takes two device windows for int64 and int32), 2^19 (for
+# int8/int16) and 2^20.
+TILE_SIZES = (128, 512, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)
+
+
+def _tile_keys(rng, shape, dtype, case, device):
+    if case == "heavy_ties":
+        return torch.from_numpy(rng.integers(0, 16, shape).astype(dtype)).to(device)
+    x = _keys(rng, shape, dtype)
+    if case == "signed_zeros":  # about half the keys -0.0 or +0.0
+        zero = rng.random(shape) < 0.5
+        x[zero] = np.where(rng.random(int(zero.sum())) < 0.5, np.float32(0.0), np.float32(-0.0))
+    return torch.from_numpy(x).to(device)
+
+
+TILE_CASES = [
+    (dtype, case)
+    for dtype in (np.int8, np.int16, np.int32, np.int64, np.float32)
+    for case in ("spread", "heavy_ties") + (("signed_zeros",) if dtype == np.float32 else ())
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TILE_SIZES)
+@pytest.mark.parametrize("dtype,case", TILE_CASES, ids=[f"{np.dtype(d).name}-{c}" for d, c in TILE_CASES])
+def test_cuda_sort_tile_tiers_match_plain(dtype, case, n, cuda_device, rng):
+    # K2 at every tier boundary, bit for bit: heavy ties and signed zeros
+    # show a wrong schedule in the bytes even where the keys still sort
+    x = _tile_keys(rng, (3 if n <= 1 << 16 else 1, n), dtype, case, cuda_device)
+    got = bitonic.sort_tile(x)
+    assert torch.equal(_bits(got), _bits(bitonic.sort_tile_plain(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((36, 1 << 18), (2304, 4096), (1, 1 << 22)), ids=str)
+@pytest.mark.parametrize("dtype", (np.int32, np.float32), ids=lambda d: np.dtype(d).name)
+def test_cuda_sort_tile_main_path_shapes_match_plain(dtype, shape, cuda_device, rng):
+    # SortEngine.sort's tiles at 2^22 keys, long-row sort_segments' rows,
+    # and a row of 2^22 (its last stage takes three device windows)
+    x = _tile_keys(rng, shape, dtype, "signed_zeros" if dtype == np.float32 else "spread", cuda_device)
+    got = bitonic.sort_tile(x)
+    assert torch.equal(_bits(got), _bits(bitonic.sort_tile_plain(x)))
+    assert torch.equal(got, torch.sort(x, dim=-1).values)
 
 
 @pytest.mark.cuda
@@ -149,3 +204,16 @@ def test_cuda_engine_pairs_and_workloads_match_numpy(dtype, cuda_device, rng):
     assert eng.last_report["plan"].path == "sim"
     buf = np.sort(x[:50_000])
     assert np.array_equal(eng.merge_sorted(buf, x[50_000:]), np.sort(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (np.int8, np.int16, np.int32, np.int64, np.float32), ids=lambda d: np.dtype(d).name)
+def test_cuda_sort_tile_unaligned_rows_match_plain(dtype, cuda_device, rng):
+    # a contiguous batch one key past a 16-byte boundary: the kernel moves
+    # its home runs key by key instead of in 16-byte words
+    n = 1 << 15
+    buf = _card_keys(rng, (2 * n + 1,), dtype, cuda_device)
+    x = buf[1:].view(2, n)
+    assert x.data_ptr() % 16
+    got = bitonic.sort_tile(x)
+    assert torch.equal(_bits(got), _bits(bitonic.sort_tile_plain(x)))

@@ -16,7 +16,7 @@ from repro_torch.core import SortEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
-    ROOT / "tools" / "pair_chunk_times.py",
+    ROOT / "tools" / "sort_variant_times.py",
 ]
 
 

@@ -64,6 +64,49 @@ def test_sort_tile_plain_matches_pallas(dtype, rng):
     _same(_back(bitonic.sort_tile(_port(x)), dtype), want)
 
 
+def _select_network(x):
+    """The bitonic network written by index, apart from the plain version's
+    reshapes: stage (s, j) pairs i with i + 2^j (bit j of i clear), orders
+    the pair ascending where bit s+1 of i is clear, and takes min and max
+    by the select on b < a that the CUDA kernels use."""
+    x = x.copy()
+    i = np.arange(x.shape[-1])
+    for s in range(x.shape[-1].bit_length() - 1):
+        for j in range(s, -1, -1):
+            lo = i[((i >> j) & 1) == 0]
+            hi = lo + (1 << j)
+            asc = ((lo >> (s + 1)) & 1) == 0
+            a, b = x[:, lo], x[:, hi]
+            b_lt_a = b < a
+            mn, mx = np.where(b_lt_a, b, a), np.where(b_lt_a, a, b)
+            x[:, lo], x[:, hi] = np.where(asc, mn, mx), np.where(asc, mx, mn)
+    return x
+
+
+@pytest.mark.parametrize("n", (256, 4096))
+@pytest.mark.parametrize("case", ("signed_zeros", "ties_int32", "ties_int8"))
+def test_sort_tile_plain_is_the_select_network_bit_for_bit(case, n, rng):
+    # The chip checks hold K2 to sort_tile_plain bit for bit; this pins that
+    # yardstick to the network itself where ties decide the bytes: float32
+    # keys half of them -0.0 or +0.0 (equal under <, apart in their bits),
+    # and integer keys from 16 values.
+    if case == "signed_zeros":
+        x = rng.standard_normal((3, n)).astype(np.float32)
+        zero = rng.random((3, n)) < 0.5
+        x[zero] = np.where(rng.random(int(zero.sum())) < 0.5, np.float32(0.0), np.float32(-0.0))
+        dtype = np.float32
+    else:
+        dtype = np.int32 if case == "ties_int32" else np.int8
+        x = rng.integers(0, 16, (3, n)).astype(dtype)
+    got = bitonic.sort_tile_plain(torch.from_numpy(x)).numpy()
+    want = _select_network(x)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    if case == "signed_zeros":
+        assert (np.signbit(got) & (got == 0)).any() and (~np.signbit(got) & (got == 0)).any()
+    for r in range(3):
+        _same(got[r], np.asarray(jbitonic.sort_tile(jnp.asarray(x[r]), interpret=True)))
+
+
 def test_sort_tile_rows_match_pallas_per_row(rng):
     x = _keys(rng, (3, 128), np.int16)
     got = _back(bitonic.sort_tile(_port(x)), np.int16)
