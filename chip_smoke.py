@@ -12,10 +12,14 @@ no result line):
    plain version's time and the library sort's; the tile sort K2 also at
    every boundary of its tiers (128 to 2^20 keys, 1, 3 and 36 rows, five
    key dtypes, heavy ties, float32 signed zeros) and timed at every shape
-   the main path hands it, and the pair sorts K5 and K7 at every boundary
-   of theirs (128 to 2^19 pairs, 1 and 3 rows, heavy ties, int64 keys with
-   float64 payloads), each with the device time of each of its launches
-   from ``torch.profiler``;
+   the main path hands it; the merge K3 at every boundary of its tiers
+   (2^8 to 2^21 keys a merged pair, 2 to 5 tiles a row, both half-passes,
+   the same dtypes and cases) and timed at the path's (36, 2, 2^19); the
+   count/rank K1 at every tile boundary for 1 to 4,096 buckets, one-bucket
+   and out-of-range ids, and timed at every (ids, B) of the path; the pair
+   sorts K5 and K7 at every boundary of theirs (128 to 2^19 pairs, 1 and
+   3 rows, heavy ties, int64 keys with float64 payloads), each with the
+   device time of each of its launches from ``torch.profiler``;
 3. the main path, ``SortEngine.sort``, against ``np.sort``: six dtypes x
    five distributions at n = 100,000, skewed inputs at 60,000 (sampled
    splitters, large capacities, a forced overflow), int64 keys spanning
@@ -190,68 +194,8 @@ def kernel_checks() -> dict:
 
     rows["sort_tile"] = tile_kernel_checks(gen)
 
-    # K3 merge_tiles: two sorted 2^19 tiles.
-    n = 1 << 19
-    a = torch.sort(random_keys((n,), torch.int32, gen)).values
-    c = torch.sort(random_keys((n,), torch.int32, gen)).values
-    lo, hi = bitonic.merge_tiles(a, c)
-    plo, phi = bitonic.merge_tiles_plain(a, c)
-    err = max(same(lo, plo, "merge_tiles lo"), same(hi, phi, "merge_tiles hi"))
-    rlo, rhi = ref.ref_merge(a, c)
-    if not (torch.equal(lo, rlo) and torch.equal(hi, rhi)):
-        fail("merge_tiles disagrees with torch.sort of the union")
-    for name in ("int8", "int16", "int64", "float32"):
-        fa = torch.sort(random_keys((4, 4096), TORCH_KEY[name], gen)).values
-        fb = torch.sort(random_keys((4, 4096), TORCH_KEY[name], gen)).values
-        klo, khi = bitonic.merge_tiles(fa, fb)
-        qlo, qhi = bitonic.merge_tiles_plain(fa, fb)
-        err = max(err, same(klo, qlo, f"merge_tiles {name}"), same(khi, qhi, f"merge_tiles {name}"))
-    # the main path's half-pass at 15,728,640 keys: 36 rows of two tiles
-    tiles = torch.sort(random_keys((36, 2, n), torch.int32, gen)).values
-    want = bitonic.merge_tile_pairs_plain(tiles.clone())
-    err = max(err, same(bitonic.merge_tile_pairs(tiles), want, "merge_tile_pairs (36, 2, 2^19)"))
-    ms = cuda_ms(lambda: bitonic.merge_tiles(a, c))
-    plain = cuda_ms(lambda: bitonic.merge_tiles_plain(a, c), reps=3)
-    # torch.sort over the 2^20-key union gives the same (lo, hi) halves
-    union = torch.cat([a, c])
-    lib = cuda_ms(lambda: torch.sort(union))
-    b, by = bound(4 * n * 4, 2 * n)
-    rows["merge_tiles"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
-        replaces="src/repro/kernels/bitonic.py:236", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-        shape="two 2^19 int32 tiles",
-    )
-
-    # K1 bucket_count_rank: 2^24 ids, B = P+1 at d_h = 1 and 2.
-    n = 1 << 24
-    err = 0.0
-    timed = {}
-    for nb in (37, 145):
-        ids = torch.from_numpy(gen.integers(0, nb, n).astype(np.int32)).to(DEV)
-        kc, kr = partition_kernel.bucket_count_rank(ids, nb)
-        pc, pr = partition_kernel.bucket_count_rank_plain(ids, nb)
-        err = max(err, same(kc, pc, f"bucket_count_rank counts B={nb}"), same(kr, pr, f"ranks B={nb}"))
-        if not torch.equal(kc, torch.bincount(ids, minlength=nb).to(torch.int32)):
-            fail("bucket_count_rank counts disagree with torch.bincount")
-        timed[nb] = ids
-    # out-of-range ids are not counted and rank 0 (they must not write past counts)
-    bad = timed[37][:100_000].clone()
-    bad[::7] = -3
-    bad[1::7] = 37
-    kc, kr = partition_kernel.bucket_count_rank(bad, 37)
-    pc, pr = partition_kernel.bucket_count_rank_plain(bad, 37)
-    err = max(err, same(kc, pc, "bucket_count_rank out-of-range counts"), same(kr, pr, "out-of-range ranks"))
-    ids = timed[145]
-    ms = cuda_ms(lambda: partition_kernel.bucket_count_rank(ids, 145))
-    plain = cuda_ms(lambda: partition_kernel.bucket_count_rank_plain(ids, 145), reps=3)
-    b, by = bound(4 * n + 4 * 145 + 4 * n, 2 * n)
-    rows["bucket_count_rank"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/partition.cu",
-        replaces="src/repro/kernels/partition_kernel.py:84", max_abs_err=err,
-        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        shape="2^24 ids, B=145",
-    )
+    rows["merge_tiles"] = merge_kernel_checks(gen)
+    rows["bucket_count_rank"] = bcr_kernel_checks(gen)
 
     # K4 batched_row_sort: (64, 8192) int32 with random lengths and garbage pads.
     err = 0.0
@@ -301,6 +245,157 @@ def kernel_checks() -> dict:
             + (f" device {r['device_ms']:.4f} ms" if r.get("device_ms") is not None else "")
         )
     return rows
+
+
+# Segment lengths at every boundary of the merge's tiers (csrc/bitonic.cu
+# merge_pairs): 2^8 .. 2^21 keys a merged pair: within one chunk (read
+# flipped by the chunk launch) for every key width, one to three distances
+# past it (the flip window alone), and longer (device windows).
+MERGE_LOG_SEGS = range(8, 22)
+
+
+def merge_kernel_checks(gen: np.random.Generator) -> dict:
+    """K3 bit for bit against its plain version at every tier boundary (2
+    to 5 tiles a row, both half-passes), every key dtype, heavy ties and
+    signed zeros, and against torch.sort of each merged pair; then timed
+    at the main path's shape, (36, 2, 2^19), beside torch.sort over the
+    same rows, with the device time of each launch."""
+    err, batches = 0.0, 0
+    for name in ("int8", "int16", "int32", "int64", "float32"):
+        for case in ("spread", "heavy_ties") + (("signed_zeros",) if name == "float32" else ()):
+            for log_seg in MERGE_LOG_SEGS:
+                m = 1 << (log_seg - 1)
+                configs = [(t, f) for t in (2, 3, 4, 5) for f in (0, 1)] if log_seg <= 16 else [(2, 0), (3, 1)]
+                for tiles, first in configs:
+                    nrows = 2 if log_seg <= 16 else 1
+                    buf = torch.sort(tile_keys((nrows, tiles, m), TORCH_KEY[name], case, gen), dim=-1).values
+                    what = f"merge_tile_pairs {name} {case} 2^{log_seg} keys a pair, {tiles} tiles, first={first}"
+                    got = bitonic.merge_tile_pairs(buf.clone(), first)
+                    err = max(err, same(got, bitonic.merge_tile_pairs_plain(buf.clone(), first), what))
+                    k = (tiles - first) // 2
+                    span = slice(first, first + 2 * k)
+                    if not torch.equal(got[:, span].reshape(nrows, k, 2 * m),
+                                       torch.sort(buf[:, span].reshape(nrows, k, 2 * m), dim=-1).values):
+                        fail(f"{what}: not torch.sort of each pair")
+                    batches += 1
+    print(f"merge_tile_pairs: {batches} batches at every tier boundary equal the plain version bit for bit")
+    # the two-tile form at 2^19 (the earlier PRs' row)
+    n = 1 << 19
+    a = torch.sort(random_keys((n,), torch.int32, gen)).values
+    c = torch.sort(random_keys((n,), torch.int32, gen)).values
+    lo, hi = bitonic.merge_tiles(a, c)
+    plo, phi = bitonic.merge_tiles_plain(a, c)
+    err = max(err, same(lo, plo, "merge_tiles lo"), same(hi, phi, "merge_tiles hi"))
+    rlo, rhi = ref.ref_merge(a, c)
+    if not (torch.equal(lo, rlo) and torch.equal(hi, rhi)):
+        fail("merge_tiles disagrees with torch.sort of the union")
+    two = launch_profile("merge_tiles two 2^19 int32 tiles", lambda: bitonic.merge_tiles(a, c), "key_")
+    print(f"kernel merge_tiles two 2^19 int32 tiles: {cuda_ms(lambda: bitonic.merge_tiles(a, c), reps=11):.4f} ms "
+          f"by events, device {two.get('device_ms')} ms, {two.get('launches')} launches, "
+          f"torch.sort of the union {cuda_ms(lambda: torch.sort(torch.cat([a, c])), reps=11):.4f} ms")
+    # the main path's half-pass at 15,728,640 keys: 36 rows of two tiles
+    tiles = torch.sort(random_keys((36, 2, n), torch.int32, gen), dim=-1).values
+    got = bitonic.merge_tile_pairs(tiles.clone())
+    err = max(err, same(got, bitonic.merge_tile_pairs_plain(tiles.clone()), "merge_tile_pairs (36, 2, 2^19)"))
+    union = tiles.view(36, 2 * n)
+    if not torch.equal(got.view(36, 2 * n), torch.sort(union, dim=-1).values):
+        fail("merge_tile_pairs (36, 2, 2^19) disagrees with torch.sort of each row")
+    # in place, over and over: the network's work does not depend on the keys
+    work = tiles.clone()
+    ms = cuda_ms(lambda: bitonic.merge_tile_pairs(work), reps=11)
+    tiers = launch_profile("merge_tile_pairs (36, 2, 2^19) int32", lambda: bitonic.merge_tile_pairs(work), "key_")
+    plain = cuda_ms(lambda: bitonic.merge_tile_pairs_plain(tiles.clone()), reps=3)
+    lib = cuda_ms(lambda: torch.sort(union, dim=-1), reps=11)
+    b, by = bound(2 * tiles.numel() * 4, tiles.numel())
+    print(f"kernel merge_tile_pairs (36, 2, 2^19) int32: {ms:.4f} ms by events, device {tiers.get('device_ms')} ms, "
+          f"{tiers.get('launches')} launches, torch.sort over (36, 2^20) {lib:.4f} ms, bound {b:.4f} ms")
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/bitonic.cu",
+        replaces="src/repro/kernels/bitonic.py:236", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        shape="(36, 2, 2^19) int32", device_ms=tiers.get("device_ms"),
+        launches_per_call=tiers.get("launches"),
+    )
+
+
+# The (ids, B) the main path hands K1: SortEngine.sort at 15,728,640 keys
+# and at 2^22 (P = 36 and 144), top_k at k = n/2, merge_sorted of 2^20
+# keys into 2^22, long-row sort_segments (64 rows x 37 buckets, each row's
+# ids in its own buckets), and the kernels line's shape, kept from earlier PRs.
+BCR_SHAPES = ((1 << 24, 37), (1 << 22, 37), (1 << 22, 145), (1 << 24, 33), (1 << 23, 37), (1 << 22, 2368),
+              (1 << 24, 145))
+
+
+def bcr_ids(n: int, nb: int, gen: np.random.Generator) -> torch.Tensor:
+    if nb == 2368:  # 64 rows of 37 buckets, as scatter_rows_to_buckets offsets them
+        row = np.arange(n) * 64 // n
+        return torch.from_numpy((row * 37 + gen.integers(0, 37, n)).astype(np.int32)).to(DEV)
+    return torch.from_numpy(gen.integers(0, nb, n).astype(np.int32)).to(DEV)
+
+
+def bcr_profile(fn, reps: int = 5) -> tuple["float | None", "int | None"]:
+    """Device time of one call (its kernel and the memset of its status
+    words; median of ``reps`` calls) and its kernel launches."""
+    fn()
+    torch.cuda.synchronize()
+    calls = devtrace.call_events(fn, reps)
+    if not calls:
+        return None, None
+    return float(np.median([sum(t for _, t in c) for c in calls])), max(sum("bcr" in n for n, _ in c) for c in calls)
+
+
+def bcr_kernel_checks(gen: np.random.Generator) -> dict:
+    """K1 against its plain version and torch.bincount at every boundary
+    of its tiles and at every bucket count the path uses, with every id
+    in one bucket and with out-of-range ids; then timed at every shape
+    the main path hands it."""
+    lib = _build.load("partition")
+    err, checks = 0.0, 0
+
+    def check(ids, nb, what):
+        kc, kr = partition_kernel.bucket_count_rank(ids, nb)
+        pc, pr = partition_kernel.bucket_count_rank_plain(ids, nb)
+        e = max(same(kc, pc, f"bucket_count_rank counts {what}"), same(kr, pr, f"bucket_count_rank ranks {what}"))
+        valid = ids[(ids >= 0) & (ids < nb)]
+        if not torch.equal(kc, torch.bincount(valid, minlength=nb).to(torch.int32)):
+            fail(f"bucket_count_rank {what}: counts disagree with torch.bincount")
+        return e
+
+    for nb in (1, 2, 37, 145, 2368, 4096):
+        tile = lib.rt_bcr_tile(nb)  # ids a tile at this B
+        for n in (1, tile - 1, tile, tile + 1, 1 << 22, 1 << 24):
+            ids = torch.from_numpy(gen.integers(0, nb, n).astype(np.int32)).to(DEV)
+            err = max(err, check(ids, nb, f"n={n} B={nb}"))
+            checks += 1
+    for nb in (1, 37, 4096):
+        for n in (lib.rt_bcr_tile(nb) + 1, 1 << 24):
+            # every id in one bucket; then a third of them out of range
+            err = max(err, check(torch.full((n,), nb - 1, dtype=torch.int32, device=DEV), nb, f"one bucket n={n} B={nb}"))
+            ids = torch.from_numpy(gen.integers(0, nb, n).astype(np.int32)).to(DEV)
+            ids[::6], ids[1::6], ids[2::6] = -3, nb, -(2**31)
+            err = max(err, check(ids, nb, f"out of range n={n} B={nb}"))
+            checks += 2
+    print(f"bucket_count_rank: {checks} calls equal the plain version and torch.bincount")
+    row = None
+    for n, nb in BCR_SHAPES:
+        ids = bcr_ids(n, nb, gen)
+        ms = cuda_ms(lambda: partition_kernel.bucket_count_rank(ids, nb), reps=11)
+        dev_ms, launches = bcr_profile(lambda: partition_kernel.bucket_count_rank(ids, nb))
+        b, by = bound(4 * n + 4 * nb + 4 * n, 2 * n)
+        print(f"kernel bucket_count_rank n=2^{n.bit_length() - 1} B={nb}: {ms:.4f} ms by events, device {dev_ms} ms "
+              f"(kernel and memset), {launches} kernel launches, bound {b:.4f} ms")
+        if launches is not None and launches != 1:
+            fail(f"bucket_count_rank made {launches} kernel launches in one call, not 1")
+        row = ids, nb, ms, dev_ms, launches, b, by
+    ids, nb, ms, dev_ms, launches, b, by = row  # the last shape: (2^24, 145)
+    plain = cuda_ms(lambda: partition_kernel.bucket_count_rank_plain(ids, nb), reps=3)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/partition.cu",
+        replaces="src/repro/kernels/partition_kernel.py:84", max_abs_err=err,
+        # no one PyTorch call gives both the counts and the stable ranks
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        shape="2^24 ids, B=145", device_ms=dev_ms, launches_per_call=launches,
+    )
 
 
 def payload(shape, dtype: torch.dtype, gen: np.random.Generator) -> torch.Tensor:
@@ -634,9 +729,11 @@ def main_path_sort() -> None:
         x = make_array("random", n, seed=2)
         got = request_launches(f"SortEngine.sort int32 n={n}", lambda x=x: paper.sort(x))
         runs = 1 + paper.last_report["overflow_retries"]  # a retry runs the request again
-        for name in ("bucket_count_rank", "sort_tile"):
-            if got[name] != runs:
-                fail(f"one sort of {n} keys launched {name} {got[name]} times in {runs} runs")
+        # K3: one call (the even half-pass over two tiles a row) at 15.7M keys
+        for name, want in (("bucket_count_rank", runs), ("sort_tile", runs),
+                           ("merge_tiles", runs if n == PAPER_MAX_KEYS else 0)):
+            if got[name] != want:
+                fail(f"one sort of {n} keys launched {name} {got[name]} times in {runs} runs, not {want}")
         profile_request(f"SortEngine.sort int32 n={n}", lambda x=x: paper.sort(x))
 
 

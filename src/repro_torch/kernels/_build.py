@@ -45,7 +45,7 @@ _SIGNATURES = {
     },
     "partition": {
         "rt_bucket_count_rank": (_P, _LL, _I, _P, _P, _P, _P),
-        "rt_bcr_tile": (),
+        "rt_bcr_tile": (_I,),
     },
 }
 

@@ -38,11 +38,11 @@ int row_sort(const void* in, void* out, const int* seg_lens, long long rows, int
              cudaStream_t st) {
   const rt::Segs g{1LL << log_n, 1, log_n};
   const size_t smem = sizeof(T) << log_n;
-  auto kernel = rt::smem_stages<T, TWO_OP, true>;
+  auto kernel = rt::smem_stages<T, TWO_OP>;
   const cudaError_t err = rt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)rows, rt::threads_for(log_n), smem, st>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), g, seg_lens, log_n, 0, log_n - 1, 31);
+  kernel<<<(unsigned)rows, rt::threads_for(log_n), smem, st>>>(static_cast<const T*>(in), static_cast<T*>(out), g,
+                                                                seg_lens);
   return (int)cudaGetLastError();
 }
 

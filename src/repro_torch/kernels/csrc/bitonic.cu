@@ -32,10 +32,18 @@
 //                  back.
 // One launch sorts every chunk; each later stage is its device windows,
 // then one launch for its distances below the chunk: 15 launches at
-// (72, 2^19) int32, 18 at (36, 2^20).  The merge (K3) keeps the first
-// schedule of the port: a 32 KiB chunk sorted in shared memory one
-// compare-exchange a thread per barrier (rt::smem_stages), and one pass
-// through device memory a longer distance (rt::global_stage).
+// (72, 2^19) int32, 18 at (36, 2^20).
+//
+// The merge (K3) has the same bound: SortEngine.sort at 15.7M keys hands it
+// one even half-pass over 36 rows of two 2^19-key tiles, 36 x 2^20 int32
+// keys read once and written once, 302 MB, 0.09 ms at 3.35 TB/s, against
+// 2n comparisons a merge (3.8e7, 0.6 us).  Its network is one stage, 20
+// distances at that shape, so it runs them in K2's tiers: the first three
+// distances in one device-memory pass that reads the second tile reversed
+// and writes every cell it read (key_device_flip, below), a device window
+// of four distances, then one chunk launch for the 13 distances below the
+// chunk (registers, shuffles, shared memory): 3 launches.  A segment that
+// fits one chunk is merged by that one launch alone.
 //
 // The pair sort (K5, K7) moves three streams: keys, a one-byte tag (K5
 // only) and the payload as raw bits.  Its bound at argsort_keys' full
@@ -67,56 +75,6 @@
 #include "common.cuh"
 
 namespace {
-
-// 32 KiB of keys per shared-memory chunk of the merge (K3).
-template <typename T>
-constexpr int log_chunk_max() {
-  return sizeof(T) == 1 ? 15 : sizeof(T) == 2 ? 14 : sizeof(T) == 4 ? 13 : 12;
-}
-
-// The first merge stage (distance M = half a segment) on a segment that
-// holds two sorted tiles [a | b] in place.  In the bitonic buffer
-// a ++ reverse(b), position i pairs a[i] with b[M-1-i]; one thread takes
-// the pairs at i and M-1-i together, so the four cells it reads are the
-// four it writes and the pass can run in place.
-template <typename T>
-__global__ void merge_first(T* base, rt::Segs g, long long n_segs) {
-  const long long m = 1LL << (g.log_seg - 1);
-  const long long quarter = m >> 1;
-  const long long total = n_segs * quarter;
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
-       p += (long long)gridDim.x * blockDim.x) {
-    const long long seg = p >> (g.log_seg - 2);
-    const long long i = p & (quarter - 1);
-    const long long i2 = m - 1 - i;
-    T* x = base + rt::seg_offset(g, seg);
-    T a0 = x[i], b0 = x[2 * m - 1 - i];
-    T a1 = x[i2], b1 = x[m + i];
-    rt::cmp_xchg<T, false>(a0, b0, true);
-    rt::cmp_xchg<T, false>(a1, b1, true);
-    x[i] = a0;
-    x[m + i] = b0;
-    x[i2] = a1;
-    x[m + i2] = b1;
-  }
-}
-
-template <typename T>
-int merge_pairs(void* base, long long rows, long long row_stride, int per_row, int log_seg,
-                cudaStream_t st) {
-  const rt::Segs g{row_stride, per_row, log_seg};
-  const long long n_segs = rows * per_row;
-  T* x = static_cast<T*>(base);
-  merge_first<T><<<rt::grid_for(n_segs << (log_seg - 2), 256), 256, 0, st>>>(x, g, n_segs);
-  const int s = log_seg - 1;
-  const int log_c = log_seg < log_chunk_max<T>() ? log_seg : log_chunk_max<T>();
-  for (int j = s - 1; j >= log_c; --j) {
-    rt::global_stage<T><<<rt::grid_for(n_segs << (log_seg - 1), 256), 256, 0, st>>>(x, g, n_segs, s, j);
-  }
-  rt::smem_stages<T, false, false><<<(unsigned)(n_segs << (log_seg - log_c)), rt::threads_for(log_c),
-                                     sizeof(T) << log_c, st>>>(x, x, g, nullptr, log_c, s, s, s - 1);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------ the pair sort (K5, K7)
 // A thread holds kE pairs in registers.  Which row positions they are
@@ -700,10 +658,13 @@ __device__ __forceinline__ void key_smem_window(T* sm, unsigned t, int jb, int j
 // Stages s_lo .. s_hi of every chunk of 2^log_c keys, one chunk a block,
 // every distance below the chunk: shared-memory windows of LOG_E distances
 // a barrier, then warp shuffles, then registers.  Reads `in`, writes `out`
-// (they may alias).
-template <typename T>
+// (they may alias).  Chunks tile the segments of g (K2: the rows; K3: the
+// merge pairs).  With FLIP the chunk is a whole K3 segment [a | b], read
+// as the merge network's a ++ reverse(b): a home run in the upper half
+// comes from the mirrored run, reversed in registers.
+template <typename T, bool FLIP>
 __global__ void __launch_bounds__(key_threads_max<T>())
-    key_chunk_stages(const T* in, T* out, int log_n, int log_c, int s_lo, int s_hi, bool vec) {
+    key_chunk_stages(const T* in, T* out, rt::Segs g, int log_c, int s_lo, int s_hi, bool vec) {
   constexpr int LOG_E = key_log_e<T>();
   constexpr int E = 1 << LOG_E;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -711,17 +672,33 @@ __global__ void __launch_bounds__(key_threads_max<T>())
   const int t = threadIdx.x;
   const int lane = t & 31;
   const unsigned mask = blockDim.x >= 32 ? 0xffffffffu : (1u << blockDim.x) - 1;
-  const int shift = log_n - log_c;
-  const long long row = (long long)blockIdx.x >> shift;
+  const int shift = g.log_seg - log_c;
+  const long long seg = rt::seg_offset(g, (long long)blockIdx.x >> shift);
   const unsigned chunk_base = (blockIdx.x & ((1u << shift) - 1)) << log_c;
   // the shared-memory windows stop at 2^log_w; shuffles take the rest down to 2^LOG_E
   const int log_w = log_c < LOG_E + 5 ? log_c : LOG_E + 5;
   const unsigned home = E * t;
-  const unsigned g0 = chunk_base + home;  // home: keys g0 .. g0 + E - 1 of the row
-  const long long off = (row << log_n) + g0;
+  const unsigned g0 = chunk_base + home;  // home: keys g0 .. g0 + E - 1 of the segment
+  const long long off = seg + g0;
 
   T k[E];
-  key_load_run(in + off, k, vec);
+  if constexpr (FLIP) {
+    const unsigned half = 1u << (log_c - 1);
+    if (g0 >= half) {
+      key_load_run(in + seg + (3 * half - E - g0), k, vec);
+#pragma unroll
+      for (int r = 0; r < E / 2; ++r) {
+        const T v = k[r];
+        k[r] = k[E - 1 - r];
+        k[E - 1 - r] = v;
+      }
+    } else {
+      key_load_run(in + off, k, vec);
+    }
+    __syncthreads();  // in place: every run is read before any is written
+  } else {
+    key_load_run(in + off, k, vec);
+  }
   for (int s = s_lo; s <= s_hi; ++s) {
     int j = s < log_c - 1 ? s : log_c - 1;
     if (j >= log_w) {
@@ -742,20 +719,20 @@ __global__ void __launch_bounds__(key_threads_max<T>())
   key_store_run(out + off, k, vec);
 }
 
-// Distances 2^jhi .. 2^jlo of stage s over every row, in place in device
-// memory: each thread loads 2^LOG_E keys at stride 2^jb (register bits
-// jb .. jb+LOG_E-1), runs the distances in registers and stores them back.
-// Neighbouring threads take neighbouring bases, so every access is
+// Distances 2^jhi .. 2^jlo of stage s over every segment of g, in place in
+// device memory: each thread loads 2^LOG_E keys at stride 2^jb (register
+// bits jb .. jb+LOG_E-1), runs the distances in registers and stores them
+// back.  Neighbouring threads take neighbouring bases, so every access is
 // coalesced.
 template <typename T>
-__global__ void key_device_window(T* keys, long long rows, int log_n, int s, int jhi, int jlo, int jb) {
+__global__ void key_device_window(T* keys, rt::Segs g, long long n_segs, int s, int jhi, int jlo, int jb) {
   constexpr int LOG_E = key_log_e<T>();
-  const long long per_row = 1LL << (log_n - LOG_E);
-  const long long total = rows * per_row;
+  const long long per_seg = 1LL << (g.log_seg - LOG_E);
+  const long long total = n_segs * per_seg;
   for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
        p += (long long)gridDim.x * blockDim.x) {
-    const long long base = spread<LOG_E>(p & (per_row - 1), jb);
-    T* x = keys + ((p >> (log_n - LOG_E)) << log_n) + base;
+    const long long base = spread<LOG_E>(p & (per_seg - 1), jb);
+    T* x = keys + rt::seg_offset(g, p >> (g.log_seg - LOG_E)) + base;
     T k[1 << LOG_E];
 #pragma unroll
     for (int r = 0; r < (1 << LOG_E); ++r) k[r] = x[(long long)r << jb];
@@ -773,26 +750,111 @@ template <typename T>
 int sort_rows(const void* in, void* out, long long rows, int log_n, cudaStream_t st) {
   constexpr int LOG_E = key_log_e<T>();
   if (log_n < LOG_E || log_n > 31) return (int)cudaErrorInvalidValue;
+  const rt::Segs g{1LL << log_n, 1, log_n};
   const int log_c = log_n < key_log_chunk<T>() ? log_n : key_log_chunk<T>();
   const unsigned blocks = (unsigned)(rows << (log_n - log_c));
   const int threads = 1 << (log_c - LOG_E);
   const size_t smem = sizeof(T) << log_c;
-  const cudaError_t err = rt::allow_smem(key_chunk_stages<T>, smem);
+  const cudaError_t err = rt::allow_smem(key_chunk_stages<T, false>, smem);
   if (err != cudaSuccess) return (int)err;
   T* o = static_cast<T*>(out);
   const bool vec = aligned16(in) && aligned16(out);
-  key_chunk_stages<T><<<blocks, threads, smem, st>>>(static_cast<const T*>(in), o, log_n, log_c, 0,
-                                                     log_c - 1, vec);
+  key_chunk_stages<T, false><<<blocks, threads, smem, st>>>(static_cast<const T*>(in), o, g, log_c, 0,
+                                                            log_c - 1, vec);
   for (int s = log_c; s < log_n; ++s) {
     for (int jhi = s; jhi >= log_c;) {
       const int jlo = jhi - (LOG_E - 1) > log_c ? jhi - (LOG_E - 1) : log_c;
       const int jb = jlo < log_n - LOG_E ? jlo : log_n - LOG_E;
-      key_device_window<T><<<rt::grid_for(rows << (log_n - LOG_E), 256), 256, 0, st>>>(o, rows, log_n, s,
-                                                                                     jhi, jlo, jb);
+      key_device_window<T><<<rt::grid_for(rows << (log_n - LOG_E), 256), 256, 0, st>>>(o, g, rows, s, jhi,
+                                                                                     jlo, jb);
       jhi = jlo - 1;
     }
-    key_chunk_stages<T><<<blocks, threads, smem, st>>>(o, o, log_n, log_c, s, s, vec);
+    key_chunk_stages<T, false><<<blocks, threads, smem, st>>>(o, o, g, log_c, s, s, vec);
   }
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ the tile merge (K3)
+// A segment of 2^log_seg keys holds two sorted tiles [a | b] of M keys
+// each; the merge is stage s = log_seg-1 of the network on a ++ reverse(b),
+// every pair ascending, written back in place.  Its first distance pairs
+// position i with 2M-1-i of the segment as the network reads it.  With
+// Q = 2^(log_seg-3), thread l (l < Q/2) of key_device_flip holds the cells
+// l + rQ and l' + rQ, l' = Q-1-l, r < 8, of its segment: a set closed
+// under i -> 4Q-1-i within each half (the reversal) and i -> M+i (the
+// first distance), so the thread writes exactly the cells it read.  The
+// network's position l + rQ, r >= 4, holds the key stored at cell
+// l' + (11-r)Q (and l' + rQ the one at l + (11-r)Q); the thread runs the
+// distances 4Q, 2Q and Q (those not below the chunk) on the keys in the
+// network's order, in registers, and writes them back straight: from
+// then on a position of the network is the cell of the same index.
+template <typename T>
+__global__ void key_device_flip(T* keys, rt::Segs g, long long n_segs, int jlo) {
+  const int log_q = g.log_seg - 3;
+  const long long q = 1LL << log_q;
+  const long long per_seg = q >> 1;
+  const long long total = n_segs * per_seg;
+  const int s = g.log_seg - 1;
+  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
+       p += (long long)gridDim.x * blockDim.x) {
+    const long long l = p & (per_seg - 1);
+    const long long l2 = q - 1 - l;
+    T* x = keys + rt::seg_offset(g, p >> (log_q - 1));
+    T a[8], b[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      a[r] = x[l + ((long long)r << log_q)];
+      b[r] = x[l2 + ((long long)r << log_q)];
+    }
+    T xa[8] = {a[0], a[1], a[2], a[3], b[7], b[6], b[5], b[4]};
+    T xb[8] = {b[0], b[1], b[2], b[3], a[7], a[6], a[5], a[4]};
+    key_reg_stages<3>(xa, (unsigned)l, log_q, s, s, jlo);
+    key_reg_stages<3>(xb, (unsigned)l2, log_q, s, s, jlo);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      x[l + ((long long)r << log_q)] = xa[r];
+      x[l2 + ((long long)r << log_q)] = xb[r];
+    }
+  }
+}
+
+// The merge of K3 over every segment of g.  A segment that fits one chunk
+// is merged by one chunk launch that reads it flipped.  A longer one takes
+// key_device_flip for its first (up to three) distances, device windows of
+// LOG_E distances down to the chunk, then one chunk launch.
+template <typename T>
+int merge_pairs(void* base, long long rows, long long row_stride, int per_row, int log_seg,
+                cudaStream_t st) {
+  constexpr int LOG_E = key_log_e<T>();
+  if (log_seg < LOG_E + 1 || log_seg > 31) return (int)cudaErrorInvalidValue;
+  const rt::Segs g{row_stride, per_row, log_seg};
+  const long long n_segs = rows * per_row;
+  T* x = static_cast<T*>(base);
+  const int s = log_seg - 1;
+  const int log_c = log_seg < key_log_chunk<T>() ? log_seg : key_log_chunk<T>();
+  const unsigned blocks = (unsigned)(n_segs << (log_seg - log_c));
+  const int threads = 1 << (log_c - LOG_E);
+  const size_t smem = sizeof(T) << log_c;
+  // rows and segments start at multiples of 128 keys, so base decides
+  const bool vec = aligned16(base);
+  if (log_seg == log_c) {
+    const cudaError_t err = rt::allow_smem(key_chunk_stages<T, true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    key_chunk_stages<T, true><<<blocks, threads, smem, st>>>(x, x, g, log_c, s, s, vec);
+    return (int)cudaGetLastError();
+  }
+  const cudaError_t err = rt::allow_smem(key_chunk_stages<T, false>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int jflip = s - 2 > log_c ? s - 2 : log_c;
+  key_device_flip<T><<<rt::grid_for(n_segs << (log_seg - 4), 256), 256, 0, st>>>(x, g, n_segs, jflip);
+  for (int jhi = jflip - 1; jhi >= log_c;) {
+    const int jlo = jhi - (LOG_E - 1) > log_c ? jhi - (LOG_E - 1) : log_c;
+    const int jb = jlo < log_seg - LOG_E ? jlo : log_seg - LOG_E;
+    key_device_window<T><<<rt::grid_for(n_segs << (log_seg - LOG_E), 256), 256, 0, st>>>(x, g, n_segs, s, jhi,
+                                                                                       jlo, jb);
+    jhi = jlo - 1;
+  }
+  key_chunk_stages<T, false><<<blocks, threads, smem, st>>>(x, x, g, log_c, s, s, vec);
   return (int)cudaGetLastError();
 }
 

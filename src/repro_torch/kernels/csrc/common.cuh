@@ -68,63 +68,34 @@ struct Segs {
 };
 
 __device__ __forceinline__ long long seg_offset(const Segs& g, long long seg) {
+  if (g.per_row == 1) return seg * g.row_stride;
   return (seg / g.per_row) * g.row_stride + ((seg % g.per_row) << g.log_seg);
 }
 
-// One stage (s, j) over every segment, in device memory: for the
-// distances that do not fit one block's shared-memory chunk.
-template <typename T>
-__global__ void global_stage(T* base, Segs g, long long n_segs, int s, int j) {
-  const long long half = 1LL << (g.log_seg - 1);
-  const long long total = n_segs * half;
-  const long long d = 1LL << j;
-  for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < total;
-       p += (long long)gridDim.x * blockDim.x) {
-    const long long seg = p >> (g.log_seg - 1);
-    const long long q = p & (half - 1);
-    const long long i = ((q >> j) << (j + 1)) | (q & (d - 1));
-    T* x = base + seg_offset(g, seg);
-    T a = x[i];
-    T b = x[i + d];
-    cmp_xchg<T, false>(a, b, ((i >> (s + 1)) & 1) == 0);
-    x[i] = a;
-    x[i + d] = b;
-  }
-}
-
-// Stages s_lo..s_hi for every distance below the chunk, in shared memory.
-// Each block loads one chunk of 2^log_c elements of one segment, runs
-// the stages, and stores it back (in and out may alias).  The first stage
-// starts at distance 2^j_first when that is lower.  With FILL, positions
-// at or past seg_lens[segment] are refilled with the dtype max first (one
-// chunk per segment then).
-template <typename T, bool TWO_OP, bool FILL>
-__global__ void smem_stages(const T* in, T* out, Segs g, const int* seg_lens, int log_c,
-                            int s_lo, int s_hi, int j_first) {
+// Every stage of the sort of each segment of g, one segment a block in
+// shared memory (the row sort K4: one row a segment).  Positions at or
+// past seg_lens[segment] are refilled with the dtype max on load.
+template <typename T, bool TWO_OP>
+__global__ void smem_stages(const T* in, T* out, Segs g, const int* seg_lens) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const int c = 1 << log_c;
-  const int shift = g.log_seg - log_c;
-  const long long seg = (long long)blockIdx.x >> shift;
-  const long long base_idx = (long long)(blockIdx.x & ((1u << shift) - 1)) << log_c;
-  const long long off = seg_offset(g, seg) + base_idx;
-  const long long len = FILL ? (long long)seg_lens[seg] : 0;
+  const int c = 1 << g.log_seg;
+  const long long off = seg_offset(g, blockIdx.x);
+  const int len = seg_lens[blockIdx.x];
   for (int t = threadIdx.x; t < c; t += blockDim.x) {
     T v = in[off + t];
-    if (FILL && base_idx + t >= len) v = max_sentinel<T>();
+    if (t >= len) v = max_sentinel<T>();
     sm[t] = v;
   }
   __syncthreads();
-  for (int s = s_lo; s <= s_hi; ++s) {
-    int j0 = s < log_c - 1 ? s : log_c - 1;
-    if (s == s_lo && j_first < j0) j0 = j_first;
-    for (int j = j0; j >= 0; --j) {
+  for (int s = 0; s < g.log_seg; ++s) {
+    for (int j = s; j >= 0; --j) {
       for (int q = threadIdx.x; q < c / 2; q += blockDim.x) {
         const int i = ((q >> j) << (j + 1)) | (q & ((1 << j) - 1));
         const int k = i + (1 << j);
         T a = sm[i];
         T b = sm[k];
-        cmp_xchg<T, TWO_OP>(a, b, (((base_idx + i) >> (s + 1)) & 1) == 0);
+        cmp_xchg<T, TWO_OP>(a, b, ((i >> (s + 1)) & 1) == 0);
         sm[i] = a;
         sm[k] = b;
       }

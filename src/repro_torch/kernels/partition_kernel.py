@@ -9,11 +9,12 @@ spot of the Array Division Procedure (§3.1): given per-element bucket ids,
 
 The TPU kernel walks its tiles in order and carries running counts from
 tile to tile.  The CUDA kernel (``csrc/partition.cu``) cannot rely on any
-block order, so it runs three passes: per-block histograms, a scan over
-blocks per bucket, and a stable in-block rank.  The plain version is the
-reference's one-hot exclusive cumsum, taken over chunks of ids with the
-running counts carried between chunks, so it never holds an ``n x B``
-matrix.  An id outside ``[0, B)`` is not counted and gets rank 0.
+block order, so it is one pass that takes its tiles in order from an
+atomic counter and chains the running counts from tile to tile by
+decoupled look-back: each id is read once and each rank written once.
+The plain version is the reference's one-hot exclusive cumsum, taken over
+chunks of ids with the running counts carried between chunks, so it never
+holds an ``n x B`` matrix.  An id outside ``[0, B)`` is not counted and gets rank 0.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ import torch
 
 from repro_torch.kernels import _build, bitonic
 
-# Bucket count the kernel's shared memory takes (eight warps' running
-# counts of 4 bytes each: 128 KiB).
+# Bucket count the kernel takes: its shared memory holds sixteen warps'
+# 16-bit running counts and the tile's counts, 144 KiB at 4,096.
 MAX_BUCKETS = 4096
+# The kernel's status words hold a count in 30 bits, so it takes fewer ids.
+MAX_KERNEL_IDS = (1 << 30) - 1
 
 _PLAIN_CHUNK = 1 << 16
 
@@ -43,14 +46,15 @@ def bucket_count_rank_plain(ids: torch.Tensor, num_buckets: int):
     _validate(ids, num_buckets)
     counts = torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
     ranks = torch.empty(ids.shape[0], dtype=torch.int32, device=ids.device)
-    cols = torch.arange(num_buckets, dtype=torch.int32, device=ids.device)
+    rows = torch.arange(num_buckets, dtype=torch.int32, device=ids.device)[:, None]
     for start in range(0, ids.shape[0], _PLAIN_CHUNK):
-        onehot = (ids[start : start + _PLAIN_CHUNK, None] == cols).to(torch.int32)
-        excl = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-        ranks[start : start + _PLAIN_CHUNK] = ((excl + counts) * onehot).sum(
-            dim=1, dtype=torch.int32
+        # (bucket, id) one-hot, so the cumsum runs along contiguous rows
+        onehot = (ids[None, start : start + _PLAIN_CHUNK] == rows).to(torch.int32)
+        excl = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+        ranks[start : start + _PLAIN_CHUNK] = ((excl + counts[:, None]) * onehot).sum(
+            dim=0, dtype=torch.int32
         )
-        counts += onehot.sum(dim=0, dtype=torch.int32)
+        counts += onehot.sum(dim=1, dtype=torch.int32)
     return counts, ranks
 
 
@@ -76,12 +80,15 @@ def bucket_count_rank(ids: torch.Tensor, num_buckets: int, *, debug: bool = Fals
         return bucket_count_rank_plain(ids, num_buckets)
     if not ids.is_contiguous():
         raise ValueError("bucket_count_rank: ids must be contiguous")
+    if n > MAX_KERNEL_IDS:
+        raise ValueError(f"bucket_count_rank: the kernel takes at most {MAX_KERNEL_IDS} ids, got {n}")
     lib = _build.load("partition")
-    tile = lib.rt_bcr_tile()
+    tile = lib.rt_bcr_tile(num_buckets)
     nblk = -(-n // tile)
     counts = torch.empty(num_buckets, dtype=torch.int32, device=ids.device)
     ranks = torch.empty(n, dtype=torch.int32, device=ids.device)
-    scratch = torch.empty(num_buckets * nblk, dtype=torch.int32, device=ids.device)
+    # one status word a (tile, bucket), then the tile counter
+    scratch = torch.empty(num_buckets * nblk + 1, dtype=torch.int32, device=ids.device)
     code = lib.rt_bucket_count_rank(
         ids.data_ptr(),
         n,

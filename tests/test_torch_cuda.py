@@ -217,3 +217,103 @@ def test_cuda_sort_tile_unaligned_rows_match_plain(dtype, cuda_device, rng):
     assert x.data_ptr() % 16
     got = bitonic.sort_tile(x)
     assert torch.equal(_bits(got), _bits(bitonic.sort_tile_plain(x)))
+
+
+# Segment lengths at every boundary of the merge's tiers (csrc/bitonic.cu,
+# merge_pairs): 2^8 .. 2^21 keys a merged pair, so segments within one
+# chunk (read flipped by the chunk launch) for every key width, one past
+# it (the flip window takes one distance), and longer ones with device
+# windows; each with 2-5 tiles a row and both half-passes.
+MERGE_LOG_SEGS = range(8, 22)
+
+
+def _merge_tiles_buf(rng, rows, tiles, m, dtype, case, device):
+    x = _tile_keys(rng, (rows, tiles, m), dtype, case, device)
+    return torch.sort(x, dim=-1).values.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_seg", MERGE_LOG_SEGS)
+@pytest.mark.parametrize("dtype,case", TILE_CASES, ids=[f"{np.dtype(d).name}-{c}" for d, c in TILE_CASES])
+def test_cuda_merge_tile_pairs_tiers_match_plain(dtype, case, log_seg, cuda_device, rng):
+    # K3 bit for bit against the plain merge network, heavy ties and signed
+    # zeros included, and against torch.sort of each merged pair
+    m = 1 << (log_seg - 1)
+    configs = [(t, f) for t in (2, 3, 4, 5) for f in (0, 1)] if log_seg <= 16 else [(2, 0), (3, 1)]
+    for tiles, first in configs:
+        rows = 2 if log_seg <= 16 else 1
+        buf = _merge_tiles_buf(rng, rows, tiles, m, dtype, case, cuda_device)
+        want = bitonic.merge_tile_pairs_plain(buf.clone(), first)
+        got = bitonic.merge_tile_pairs(buf.clone(), first)
+        assert torch.equal(_bits(got), _bits(want)), (tiles, first)
+        k = (tiles - first) // 2
+        pairs = buf[:, first : first + 2 * k].reshape(rows, k, 2 * m)
+        assert torch.equal(got[:, first : first + 2 * k].reshape(rows, k, 2 * m), torch.sort(pairs, dim=-1).values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (np.int32, np.float32), ids=lambda d: np.dtype(d).name)
+def test_cuda_merge_tile_pairs_main_path_shape_matches_plain(dtype, cuda_device, rng):
+    # SortEngine.sort's half-pass at 15,728,640 keys: 36 rows of two 2^19 tiles
+    buf = _merge_tiles_buf(rng, 36, 2, 1 << 19, dtype, "signed_zeros" if dtype == np.float32 else "spread", cuda_device)
+    got = bitonic.merge_tile_pairs(buf.clone(), 0)
+    assert torch.equal(_bits(got), _bits(bitonic.merge_tile_pairs_plain(buf.clone(), 0)))
+    lo, hi = bitonic.merge_tiles(buf[:, 0], buf[:, 1])
+    assert torch.equal(lo, got[:, 0]) and torch.equal(hi, got[:, 1])
+
+
+# K1 at the bucket counts the path hands it (1, 2, P+1 at d_h = 1 and 2,
+# long-row sort_segments' 64 x 37, the limit) and at every boundary of its
+# tiles, whose length the library gives for each B.
+BCR_BUCKETS = (1, 2, 37, 145, 2368, 4096)
+BCR_SIZES = ("1", "tile-1", "tile", "tile+1", "2^22", "2^24")
+
+
+def _bcr_n(size, num_buckets):
+    from repro_torch.kernels import _build
+
+    tile = _build.load("partition").rt_bcr_tile(num_buckets)
+    return {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "2^22": 1 << 22, "2^24": 1 << 24}[size]
+
+
+def _same_counts_ranks(ids, nb):
+    got = partition_kernel.bucket_count_rank(ids, nb)
+    want = partition_kernel.bucket_count_rank_plain(ids, nb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    valid = ids[(ids >= 0) & (ids < nb)]
+    assert torch.equal(got[0], torch.bincount(valid, minlength=nb).to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", BCR_SIZES)
+@pytest.mark.parametrize("num_buckets", BCR_BUCKETS)
+def test_cuda_bucket_count_rank_sizes_match_plain(num_buckets, size, cuda_device, rng):
+    n = _bcr_n(size, num_buckets)
+    ids = torch.from_numpy(rng.integers(0, num_buckets, n).astype(np.int32)).to(cuda_device)
+    _same_counts_ranks(ids, num_buckets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_buckets", (1, 37, 4096))
+@pytest.mark.parametrize("size", ("tile+1", "2^22"))
+def test_cuda_bucket_count_rank_one_bucket_and_out_of_range(size, num_buckets, cuda_device, rng):
+    # every id in one bucket (the most contention), then a third of the ids
+    # out of range on both sides: not counted, rank 0, nothing written past
+    n = _bcr_n(size, num_buckets)
+    ids = torch.full((n,), num_buckets - 1, dtype=torch.int32, device=cuda_device)
+    _same_counts_ranks(ids, num_buckets)
+    ids = torch.from_numpy(rng.integers(0, num_buckets, n).astype(np.int32)).to(cuda_device)
+    ids[::6] = -3
+    ids[1::6] = num_buckets
+    ids[2::6] = -(2**31)
+    _same_counts_ranks(ids, num_buckets)
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_count_rank_unaligned_ids_match_plain(cuda_device, rng):
+    # ids one int past a 16-byte boundary: the per-thread kernel loads and
+    # stores its runs id by id instead of in 16-byte words
+    buf = torch.from_numpy(rng.integers(0, 37, (1 << 20) + 1).astype(np.int32)).to(cuda_device)
+    ids = buf[1:]
+    assert ids.data_ptr() % 16
+    _same_counts_ranks(ids, 37)

@@ -8,6 +8,9 @@ themselves are held to these plain versions on the card by
 ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,6 +151,130 @@ def test_merge_tile_pairs_odd_half_pass_leaves_the_ends(rng):
     _same(out[:, 3], tiles[:, 3])
     for r in range(2):
         _same(out[r, 1:3].ravel(), np.sort(tiles[r, 1:3].ravel()))
+
+
+def _key_tier_constants():
+    """(LOG_E, log2 chunk keys) of csrc/bitonic.cu's key tiers for each key
+    dtype, computed from its constants as key_log_e / key_log_chunk do."""
+    src = (Path(bitonic.__file__).parent / "csrc" / "bitonic.cu").read_text()
+    log_e = int(re.search(r"constexpr int kLogKeyE = (\d+);", src).group(1))
+    chunk_bytes = int(re.search(r"constexpr int kLogKeyChunkBytes = (\d+);", src).group(1))
+    out = {}
+    for dt in (torch.int8, torch.int16, torch.int32, torch.int64, torch.float32):
+        log_size = torch.empty((), dtype=dt).element_size().bit_length() - 1
+        e = max(log_e, 4 - log_size)
+        out[dt] = e, min(chunk_bytes - log_size, e + 10)
+    return out
+
+
+def _held_cx(k, cells, bit, s):
+    """Held key r meets r + 2^bit in every thread (k: (segs, threads, E)),
+    the pair left as the kernels leave it; the direction is bit s+1 of the
+    lower key's index in its segment (``cells``: (threads, E))."""
+    e = k.shape[-1]
+    r = torch.arange(e)
+    lo = r[(r >> bit) & 1 == 0]
+    hi = lo + (1 << bit)
+    a, b = k[..., lo], k[..., hi]
+    asc = ((cells[:, lo] >> (s + 1)) & 1) == 0
+    b_lt_a = b < a
+    mn, mx = torch.where(b_lt_a, b, a), torch.where(b_lt_a, a, b)
+    k[..., lo], k[..., hi] = torch.where(asc, mn, mx), torch.where(asc, mx, mn)
+
+
+def _k3_schedule_model(x, log_e, log_c):
+    """csrc/bitonic.cu's merge (K3) on segments ``x`` (segs, 2^log_seg),
+    each holding two sorted tiles, by the kernels' index arithmetic."""
+    x = x.clone()
+    n = x.shape[-1]
+    log_seg = n.bit_length() - 1
+    s, m, e = log_seg - 1, n // 2, 1 << log_e
+    if log_seg <= log_c:
+        # one chunk launch: home runs of the upper half read from the
+        # mirrored run (3M - E - g0), reversed
+        g0 = torch.arange(0, n, e)
+        src = torch.where(g0 >= m, 3 * m - e - g0, g0)[:, None] + torch.arange(e)
+        src = torch.where(g0[:, None] >= m, src.flip(-1), src)
+        x = x[:, src.reshape(-1)]
+        j0 = s
+    else:
+        # key_device_flip: thread l holds cells l + rQ and l' + rQ, l' = Q-1-l
+        q = n // 8
+        l = torch.arange(q // 2)
+        r = torch.arange(8) * q
+        ca, cb = l[:, None] + r, (q - 1 - l)[:, None] + r
+        assert torch.equal(torch.bincount(torch.cat([ca, cb]).reshape(-1), minlength=n), torch.ones(n, dtype=torch.long))
+        a, b = x[:, ca], x[:, cb]
+        up = [7, 6, 5, 4]
+        xa, xb = torch.cat([a[..., :4], b[..., up]], -1), torch.cat([b[..., :4], a[..., up]], -1)
+        jflip = max(s - 2, log_c)
+        for j in range(s, jflip - 1, -1):
+            for k, cells in ((xa, ca), (xb, cb)):
+                _held_cx(k, cells, j - (log_seg - 3), s)
+        x[:, ca], x[:, cb] = xa, xb
+        # key_device_window: LOG_E distances a launch, register bits jb..
+        jhi = jflip - 1
+        while jhi >= log_c:
+            jlo = max(jhi - (log_e - 1), log_c)
+            jb = min(jlo, log_seg - log_e)
+            u = torch.arange(n >> log_e)
+            base = ((u >> jb) << (jb + log_e)) | (u & ((1 << jb) - 1))
+            cells = base[:, None] + (torch.arange(e) << jb)
+            k = x[:, cells]
+            for j in range(jhi, jlo - 1, -1):
+                _held_cx(k, cells, j - jb, s)
+            x[:, cells] = k
+            jhi = jlo - 1
+        j0 = log_c - 1
+    # key_chunk_stages: the distances below the chunk, each on every pair
+    i = torch.arange(n)
+    for j in range(j0, -1, -1):
+        lo = i[(i >> j) & 1 == 0]
+        hi = lo + (1 << j)
+        a, b = x[:, lo], x[:, hi]
+        asc = ((lo >> (s + 1)) & 1) == 0
+        b_lt_a = b < a
+        mn, mx = torch.where(b_lt_a, b, a), torch.where(b_lt_a, a, b)
+        x[:, lo], x[:, hi] = torch.where(asc, mn, mx), torch.where(asc, mx, mn)
+    return x
+
+
+K3_MODEL_CASES = [
+    (torch.int8, "ties"), (torch.int16, "ties"), (torch.int32, "ties"), (torch.int64, "ties"),
+    (torch.float32, "signed_zeros"),
+]
+
+
+@pytest.mark.parametrize("log_seg", range(8, 22))
+@pytest.mark.parametrize("dtype,case", K3_MODEL_CASES, ids=[f"{str(d)[6:]}-{c}" for d, c in K3_MODEL_CASES])
+def test_k3_schedule_model_is_the_plain_merge_bit_for_bit(dtype, case, log_seg, rng):
+    # The CUDA merge's tiers (the flip window, device windows, one chunk
+    # launch), modelled by their index sets and held to the plain network
+    # before any chip run: 16-value ties and float32 keys half of them
+    # -0.0 or +0.0, where a wrong schedule shows in the bytes.
+    log_e, log_c = _key_tier_constants()[dtype]
+    m = 1 << (log_seg - 1)
+    rows, tiles, first = (2, 3, log_seg % 2) if log_seg <= 12 else (1, 2, 0)
+    if case == "ties":
+        raw = rng.integers(0, 16, (rows, tiles, m))
+    else:
+        raw = rng.standard_normal((rows, tiles, m)).astype(np.float32)
+        zero = rng.random(raw.shape) < 0.5
+        raw[zero] = np.where(rng.random(int(zero.sum())) < 0.5, np.float32(0.0), np.float32(-0.0))
+    buf = torch.sort(torch.from_numpy(raw).to(dtype), dim=-1).values
+    want = bitonic.merge_tile_pairs_plain(buf.clone(), first)
+    # every segment of the half-pass, addressed as rt::seg_offset does
+    flat = buf.clone().reshape(-1)
+    per_row = (tiles - first) // 2
+    seg = torch.arange(rows * per_row)
+    offs = (seg // per_row) * tiles * m + first * m + (seg % per_row) * 2 * m
+    cells = offs[:, None] + torch.arange(2 * m)
+    flat[cells] = _k3_schedule_model(flat[cells], log_e, log_c)
+    got = flat.view(rows, tiles, m)
+    assert torch.equal(got.view(torch.int32) if dtype == torch.float32 else got,
+                       want.view(torch.int32) if dtype == torch.float32 else want)
+    if case == "signed_zeros":
+        assert (torch.signbit(got) & (got == 0)).any() and (~torch.signbit(got) & (got == 0)).any()
 
 
 @pytest.mark.parametrize(

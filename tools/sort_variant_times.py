@@ -1,25 +1,36 @@
-"""Time the tile sort (K2) or the pair sort (K5, K7) built with other constants.
+"""Time the tile sort (K2), the pair sort (K5, K7), the merge (K3) or the
+count/rank (K1) built with other constants.
 
     python3 tools/sort_variant_times.py tile "kLogKeyE=4" "kLogKeyE=3"
     python3 tools/sort_variant_times.py tile "kLogKeyChunkBytes=15" "kLogKeyChunkBytes=16"
     python3 tools/sort_variant_times.py pairs "kLogPairChunk=11" "kLogPairChunk=12"
+    python3 tools/sort_variant_times.py merge "" "csrc=build/parent/src/repro_torch/kernels/csrc"
+    python3 tools/sort_variant_times.py bcr "" "kBcrThreadBuckets=0" "kBcrItems=32" "kBcrWarpsLarge=8"
         [--rounds 6] [--reps 21]
 
 ``csrc/bitonic.cu`` fixes each sort's tiers with plain constants: the keys
 a thread holds (``kLogKeyE``) and the bytes a block holds
-(``kLogKeyChunkBytes``) for K2, the pairs a block holds
-(``kLogPairChunk``) for K5 and K7.  Each variant is a list of
-``NAME=VALUE`` settings; this script copies ``csrc/`` once for each, with
-those constants rewritten, builds the copies (one nvcc each, all at once,
-into ``build/repro_torch/variant<i>/``) and times each through the
-wrappers a caller uses (``bitonic.sort_tile``, or
-``bitonic.sort_pairs_tile_tagged`` and ``bitonic.sort_pairs_tile``).  Each
-variant is first held bit for bit against the plain version.  A time is
-the median over calls of CUDA events around one wrapper call (its host
-work included); the variants take turns round by round (A B, then B A,
-...), so drift falls on all alike.  The device time of one call
-(``torch.profiler``, every launch of the sort summed) and its launch count
-are printed beside it.  Needs a CUDA card and nvcc.
+(``kLogKeyChunkBytes``) for K2 and K3, the pairs a block holds
+(``kLogPairChunk``) for K5 and K7; ``csrc/partition.cu`` fixes K1's ids a
+thread (``kBcrItems``, ``kBcrItemsLarge``), warps a block (``kBcrWarps``,
+``kBcrWarpsLarge``), look-back window (``kBcrWindow``,
+``kBcrWindowLarge``) and the bucket count up to which each thread counts
+its own ids (``kBcrThreadBuckets``; 0 ranks every B by
+``__match_any_sync``).  Each variant is a list of ``NAME=VALUE``
+settings, and may name ``csrc=DIR``: the sources of another checkout (an
+earlier commit unpacked with ``git archive``) in place of this one's.  This
+script copies the sources once for each variant, with those constants
+rewritten, builds the copies (one nvcc each, all at once, into
+``build/repro_torch/variant<i>/``) and times each through the wrappers a
+caller uses (``bitonic.sort_tile``; ``bitonic.sort_pairs_tile_tagged`` and
+``bitonic.sort_pairs_tile``; ``bitonic.merge_tile_pairs``;
+``partition_kernel.bucket_count_rank``).  Each variant is first held bit
+for bit against the plain version.  A time is the median over calls of
+CUDA events around one wrapper call (its host work included); the
+variants take turns round by round (A B, then B A, ...), so drift falls on
+all alike.  The device time of one call (``torch.profiler``, every launch
+of the kernel summed, K1's memset of its status words included) and its
+kernel launches are printed beside it.  Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -39,36 +50,48 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import devtrace  # noqa: E402
-from repro_torch.kernels import _build, bitonic  # noqa: E402
+from repro_torch.kernels import _build, bitonic, partition_kernel  # noqa: E402
 
-# The kernel names of each sort's launches, for the profiler.
-KERNEL_PREFIX = {"tile": "key_", "pairs": "pair_"}
+# Each mode's source (csrc/<name>.cu) and the names of its device events
+# for the profiler: its kernels, then anything else its call runs.
+SOURCE = {"tile": "bitonic", "pairs": "bitonic", "merge": "bitonic", "bcr": "partition"}
+KERNEL_PREFIX = {
+    "tile": ("key_",), "pairs": ("pair_",),
+    # K3's kernels, and those of its first schedule (an earlier checkout)
+    "merge": ("key_", "merge_first", "global_stage", "smem_stages"),
+    "bcr": ("bcr", "Memset"),
+}
 
 
-def parse_variant(text: str) -> dict[str, int]:
+def parse_variant(text: str) -> dict:
     settings = {}
     for item in text.split():
         name, _, value = item.partition("=")
-        if not name.isidentifier() or not value.lstrip("-").isdigit():
-            sys.exit(f"sort_variant_times.py: {item!r} is not NAME=INTEGER")
-        settings[name] = int(value)
+        if name == "csrc" and value:
+            settings[name] = Path(value)
+        elif not name.isidentifier() or not value.lstrip("-").isdigit():
+            sys.exit(f"sort_variant_times.py: {item!r} is neither NAME=INTEGER nor csrc=DIR")
+        else:
+            settings[name] = int(value)
     return settings
 
 
-def build(variants: list[dict[str, int]]) -> list[ctypes.CDLL]:
+def build(variants: list[dict], source: str) -> list[ctypes.CDLL]:
     procs = []
     for i, settings in enumerate(variants):
         out = _build.BUILD_DIR / f"variant{i}"
         shutil.rmtree(out, ignore_errors=True)
-        shutil.copytree(_build.CSRC, out / "csrc")
-        src = out / "csrc" / "bitonic.cu"
+        shutil.copytree(settings.get("csrc", _build.CSRC), out / "csrc")
+        src = out / "csrc" / f"{source}.cu"
         text = src.read_text()
         for name, value in settings.items():
+            if name == "csrc":
+                continue
             text, found = re.subn(rf"constexpr int {name} = -?\d+;", f"constexpr int {name} = {value};", text)
             if found != 1:
-                sys.exit(f"sort_variant_times.py: bitonic.cu defines {name} {found} times, expected once")
+                sys.exit(f"sort_variant_times.py: {source}.cu defines {name} {found} times, expected once")
         src.write_text(text)
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / "bitonic.so"), str(src)]
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / f"{source}.so"), str(src)]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = []
     for i, proc in enumerate(procs):
@@ -77,8 +100,8 @@ def build(variants: list[dict[str, int]]) -> list[ctypes.CDLL]:
             sys.exit(f"sort_variant_times.py: nvcc failed for variant {variants[i]}:\n{output[-4000:]}")
         spills = sorted(set(re.findall(r"(\d+) bytes spill stores", output)) - {"0"})
         print(f"variant {i} {variants[i]}: built, spill stores {spills or 'none'}", flush=True)
-        lib = ctypes.CDLL(str(_build.BUILD_DIR / f"variant{i}" / "bitonic.so"))
-        for fn, argtypes in _build._SIGNATURES["bitonic"].items():
+        lib = ctypes.CDLL(str(_build.BUILD_DIR / f"variant{i}" / f"{source}.so"))
+        for fn, argtypes in _build._SIGNATURES[source].items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -99,12 +122,14 @@ def event_ms(fn, reps: int) -> list[float]:
     return times
 
 
-def device_ms(fn, prefix: str, traces: int = 5) -> tuple[float, int]:
-    """Device time and launch count of one call, from torch.profiler (the
-    median over ``traces`` calls traced in one session)."""
+def device_ms(fn, prefixes: tuple[str, ...], traces: int = 5) -> tuple[float, int]:
+    """Device time and kernel launches of one call, from torch.profiler
+    (the median over ``traces`` calls traced in one session): the events
+    named by any of ``prefixes``; a memset is no launch."""
     calls = devtrace.call_events(fn, traces) or [[]]
-    calls = [[ms for name, ms in c if prefix in name] for c in calls]
-    return float(np.median([sum(c) for c in calls])), max(len(c) for c in calls)
+    calls = [[(name, ms) for name, ms in c if any(p in name for p in prefixes)] for c in calls]
+    return (float(np.median([sum(ms for _, ms in c) for c in calls])),
+            max(sum("Memset" not in name for name, _ in c) for c in calls))
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -150,9 +175,48 @@ def pair_cases(dev, gen):
     ]
 
 
+def merge_cases(dev, gen):
+    """(label, call, plain call, checked call) for K3 at the main path's
+    half-pass and with 8-byte keys.  The timed call merges in place over
+    and over (the network's work does not depend on the keys); the checked
+    call merges a fresh copy."""
+    cases = []
+    for shape, dtype in (((36, 2, 1 << 19), np.int32), ((36, 2, 1 << 18), np.int64)):
+        info = np.iinfo(dtype)
+        raw = gen.integers(info.min, info.max, shape, dtype=np.int64, endpoint=True).astype(dtype)
+        tiles = torch.sort(torch.from_numpy(raw).to(dev), dim=-1).values
+        work = tiles.clone()
+        cases.append((f"K3 {shape} {np.dtype(dtype).name}", lambda w=work: bitonic.merge_tile_pairs(w),
+                      lambda t=tiles: bitonic.merge_tile_pairs_plain(t.clone()),
+                      lambda t=tiles: bitonic.merge_tile_pairs(t.clone())))
+    return cases
+
+
+def bcr_cases(dev, gen):
+    """(label, call, plain call) for K1 at every (ids, B) the main path
+    hands it (chip_smoke.BCR_SHAPES): sort at 15,728,640 and 2^22 keys (P
+    = 36 and 144), top_k at k = n/2, merge_sorted, long-row sort_segments
+    (each row's ids in its own 37 buckets), and the kernels line's shape."""
+    cases = []
+    for n, nb in ((1 << 24, 37), (1 << 22, 37), (1 << 22, 145), (1 << 24, 33), (1 << 23, 37), (1 << 22, 2368),
+                  (1 << 24, 145)):
+        if nb == 2368:
+            raw = np.arange(n) * 64 // n * 37 + gen.integers(0, 37, n)
+        else:
+            raw = gen.integers(0, nb, n)
+        ids = torch.from_numpy(raw.astype(np.int32)).to(dev)
+        cases.append((f"K1 (2^{n.bit_length() - 1}, {nb})",
+                      lambda ids=ids, nb=nb: partition_kernel.bucket_count_rank(ids, nb),
+                      lambda ids=ids, nb=nb: partition_kernel.bucket_count_rank_plain(ids, nb)))
+    return cases
+
+
+CASES = {"tile": tile_cases, "pairs": pair_cases, "merge": merge_cases, "bcr": bcr_cases}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sort", choices=sorted(KERNEL_PREFIX))
+    ap.add_argument("sort", choices=sorted(SOURCE))
     ap.add_argument("variants", nargs="+", help='each a quoted list of NAME=VALUE, e.g. "kLogKeyE=3"')
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--reps", type=int, default=21, help="calls timed a round")
@@ -160,34 +224,35 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("sort_variant_times.py: no CUDA device")
     variants = [parse_variant(v) for v in args.variants]
-    libs = build(variants)
+    source = SOURCE[args.sort]
+    libs = build(variants, source)
     dev = torch.device("cuda")
-    todo = (tile_cases if args.sort == "tile" else pair_cases)(dev, np.random.default_rng(0))
-    times = {(i, label): [] for i in range(len(libs)) for label, _, _ in todo}
+    todo = CASES[args.sort](dev, np.random.default_rng(0))
+    times = {(i, case[0]): [] for i in range(len(libs)) for case in todo}
     for i, lib in enumerate(libs):
-        _build._libs["bitonic"] = lib
-        for label, fn, plain in todo:
-            got, want = fn(), plain()
+        _build._libs[source] = lib
+        for label, fn, plain, *checked in todo:
+            got, want = (checked[0] if checked else fn)(), plain()
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
             if not all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want)):
                 sys.exit(f"sort_variant_times.py: variant {variants[i]} {label} differs from the plain version")
     for rnd in range(args.rounds):
         order = range(len(libs)) if rnd % 2 == 0 else reversed(range(len(libs)))
         for i in order:
-            _build._libs["bitonic"] = libs[i]
-            for label, fn, _ in todo:
+            _build._libs[source] = libs[i]
+            for label, fn, *_ in todo:
                 fn()
                 times[i, label] += event_ms(fn, args.reps)
-    for label, fn, _ in todo:
+    for label, fn, *_ in todo:
         for i, lib in enumerate(libs):
-            _build._libs["bitonic"] = lib
+            _build._libs[source] = lib
             dev_ms, launches = device_ms(fn, KERNEL_PREFIX[args.sort])
             print(
                 f"variant {i} {label}: {np.median(times[i, label]):.4f} ms by events "
                 f"(median of {len(times[i, label])}), {dev_ms:.4f} ms on the card, {launches} launches",
                 flush=True,
             )
-    _build._libs.pop("bitonic")
+    _build._libs.pop(source)
 
 
 if __name__ == "__main__":
