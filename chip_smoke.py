@@ -19,7 +19,13 @@ no result line):
    and out-of-range ids, and timed at every (ids, B) of the path; the pair
    sorts K5 and K7 at every boundary of theirs (128 to 2^19 pairs, 1 and
    3 rows, heavy ties, int64 keys with float64 payloads), each with the
-   device time of each of its launches from ``torch.profiler``;
+   device time of each of its launches from ``torch.profiler``; the row
+   sort K4 and the pair row sort K6 at every boundary of theirs (128 keys
+   to 64 KiB a row, every key dtype, both K4 methods, 16-value ties,
+   sentinel keys, garbage pads, lengths at a home run's edges and past
+   both ends), K4 timed at (64, 8192) int32, float32 and int64 and at
+   (64, 2^16) int8, K6 at (64, 8192) int32/int32 and int64/float64, each
+   with its device time and kernel launches a call;
 3. the main path, ``SortEngine.sort``, against ``np.sort``: six dtypes x
    five distributions at n = 100,000, skewed inputs at 60,000 (sampled
    splitters, large capacities, a forced overflow), int64 keys spanning
@@ -197,8 +203,62 @@ def kernel_checks() -> dict:
     rows["merge_tiles"] = merge_kernel_checks(gen)
     rows["bucket_count_rank"] = bcr_kernel_checks(gen)
 
-    # K4 batched_row_sort: (64, 8192) int32 with random lengths and garbage pads.
-    err = 0.0
+    rows["batched_row_sort"] = row_kernel_checks(gen)
+    rows.update(pair_kernel_checks(gen))
+    for name, r in rows.items():
+        print(
+            f"kernel {name} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}), plain {r['plain_ms']:.3f} ms, library {r['library_ms']}, "
+            f"max_abs_err {r['max_abs_err']} {r.get('extra', '')}"
+            + (f" device {r['device_ms']:.4f} ms" if r.get("device_ms") is not None else "")
+        )
+    return rows
+
+
+# Row lengths at every boundary of the row sort's tiers (csrc/batched.cu on
+# key_tiers.cuh): a partial warp, one warp's 512 keys, one chunk of int64
+# (2^12), int32 (2^13) and int8/int16 (2^14), then device windows up to
+# 64 KiB a row.
+ROW_SIZES = (128, 512, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)
+
+
+def row_batch(nrows: int, n: int, dtype: torch.dtype, gen: np.random.Generator):
+    """Keys from 16 values, some equal to the sentinel (float32: signed
+    zeros too), lengths at a home run's edges, the row's, past both ends
+    and random, and garbage in the pads."""
+    raw = torch.from_numpy(gen.integers(0, 16, (nrows, n))).to(DEV)
+    if dtype.is_floating_point:
+        x = (raw - 8).to(dtype)
+        x[raw == 15] = float("inf")
+        x[(raw == 8) & torch.from_numpy(gen.random((nrows, n)) < 0.5).to(DEV)] = -0.0
+    else:
+        x = raw.to(dtype)
+        x[raw == 15] = torch.iinfo(dtype).max
+    lens = np.concatenate([[0, 1, 15, 16, 17, n - 1, n, -3, n + 5], gen.integers(0, n + 1, nrows - 9)])
+    lens = torch.from_numpy(lens.astype(np.int32)).to(DEV)
+    pad = torch.arange(n, device=DEV)[None, :] >= lens[:, None]
+    return torch.where(pad, random_keys((nrows, n), dtype, gen), x), lens
+
+
+def row_kernel_checks(gen: np.random.Generator) -> dict:
+    """K4 bit for bit against its plain version at every tier boundary,
+    every key dtype, both methods; at the kernels line's (64, 8192) int32
+    against np.sort too; then timed at (64, 8192) int32 by events and on
+    the card, with its launches a call, for both methods, and at int64
+    (64, 8192) and int8 (64, 2^16)."""
+    err, batches = 0.0, 0
+    for name in ("int8", "int16", "int32", "int64", "float32"):
+        dt = TORCH_KEY[name]
+        for n in ROW_SIZES:
+            if n * torch.empty((), dtype=dt).element_size() > batched.MAX_ROW_BYTES:
+                continue
+            x, lens = row_batch(16, n, dt, gen)
+            for method in batched.METHODS:
+                err = max(err, same(batched.batched_row_sort(x, lens, method=method),
+                                    batched.batched_row_sort_plain(x, lens, method=method),
+                                    f"batched_row_sort {name} ({x.shape[0]}, {n}) {method}"))
+                batches += 1
+    print(f"batched_row_sort: {batches} batches at every tier boundary equal the plain version bit for bit")
     x = random_keys((64, 8192), torch.int32, gen)
     lens = torch.from_numpy(gen.integers(0, 8193, 64).astype(np.int32)).to(DEV)
     for method in batched.METHODS:
@@ -210,41 +270,36 @@ def kernel_checks() -> dict:
                 fail(f"batched_row_sort {method} row {i} is not np.sort")
             if (host[i, ln:] != np.iinfo(np.int32).max).any():
                 fail(f"batched_row_sort {method} row {i} pad is not the sentinel")
-    for name in DTYPES:
-        if name == "uint32":
-            continue
-        dt = TORCH_KEY[name]
-        y = random_keys((64, 1024), dt, gen)
-        fill = float("inf") if dt.is_floating_point else torch.iinfo(dt).max
-        y[:, ::5] = fill  # keys equal to the sentinel
-        ylens = torch.from_numpy(gen.integers(0, 1025, 64).astype(np.int32)).to(DEV)
-        for method in batched.METHODS:
-            err = max(err, same(
-                batched.batched_row_sort(y, ylens, method=method),
-                batched.batched_row_sort_plain(y, ylens, method=method),
-                f"batched {method} {name}",
-            ))
-    timings = {m: cuda_ms(lambda m=m: batched.batched_row_sort(x, lens, method=m)) for m in batched.METHODS}
+    timed = {}
+    for shape, dt in (((64, 8192), torch.int32), ((64, 8192), torch.float32), ((64, 8192), torch.int64),
+                      ((64, 1 << 16), torch.int8)):
+        y = x if dt == torch.int32 else random_keys(shape, dt, gen)
+        ylens = lens if dt == torch.int32 else torch.from_numpy(gen.integers(0, shape[1] + 1, 64).astype(np.int32)).to(DEV)
+        for method in batched.METHODS if not dt.is_floating_point else ("bitonic",):
+            err = max(err, same(batched.batched_row_sort(y, ylens, method=method),
+                                batched.batched_row_sort_plain(y, ylens, method=method),
+                                f"batched_row_sort {shape} {dt} {method}"))
+            label = f"batched_row_sort {shape} {str(dt)[6:]} {method}"
+            ms = cuda_ms(lambda m=method: batched.batched_row_sort(y, ylens, method=m), reps=11)
+            tiers = launch_profile(label, lambda m=method: batched.batched_row_sort(y, ylens, method=m), "key_")
+            profile_request(label, lambda m=method: batched.batched_row_sort(y, ylens, method=m))
+            print(f"kernel {label}: {ms:.4f} ms by events, device {tiers.get('device_ms')} ms, "
+                  f"{tiers.get('launches')} launches a call")
+            timed[shape, dt, method] = ms, tiers
     plain = cuda_ms(lambda: batched.batched_row_sort_plain(x, lens, method="bitonic"), reps=3)
     lib = cuda_ms(lambda: torch.sort(x, dim=-1))
     # the kernel need not read the pad cells, but writes every cell
     valid = int(lens.sum())
     b, by = bound((valid + x.numel()) * 4 + 4 * 64, sort_comparisons(lens.cpu().tolist()))
-    rows["batched_row_sort"] = dict(
+    ms, tiers = timed[(64, 8192), torch.int32, "bitonic"]
+    ms2, tiers2 = timed[(64, 8192), torch.int32, "bitonic2op"]
+    return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/batched.cu",
         replaces="src/repro/kernels/batched.py:145", max_abs_err=err,
-        ms=timings["bitonic"], plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-        shape="(64, 8192) int32", extra=f"bitonic2op {timings['bitonic2op']:.4f} ms",
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+        shape="(64, 8192) int32", device_ms=tiers.get("device_ms"), launches_per_call=tiers.get("launches"),
+        extra=f"bitonic2op {ms2:.4f} ms, device {tiers2.get('device_ms')} ms",
     )
-    rows.update(pair_kernel_checks(gen))
-    for name, r in rows.items():
-        print(
-            f"kernel {name} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}), plain {r['plain_ms']:.3f} ms, library {r['library_ms']}, "
-            f"max_abs_err {r['max_abs_err']} {r.get('extra', '')}"
-            + (f" device {r['device_ms']:.4f} ms" if r.get("device_ms") is not None else "")
-        )
-    return rows
 
 
 # Segment lengths at every boundary of the merge's tiers (csrc/bitonic.cu
@@ -418,6 +473,11 @@ def same_pairs(got, want, what: str) -> float:
 # four chunks (the first lengths with device-memory windows), then longer
 # rows up to argsort_keys' full width.
 PAIR_SIZES = (128, 256, 1 << 11, 1 << 12, 1 << 13, 1 << 15, 1 << 16, 1 << 19)
+# Pair row lengths at every boundary of the pair row sort (csrc/batched.cu
+# pair_chunk_rows): under one warp's 256 pairs, one warp, more runs a
+# thread up to a row that fills one block's shared memory, and rows past
+# it (the fill in torch, then the pair sort's launches).
+ROW_PAIR_SIZES = (128, 256, 512, 2048, 8192, 1 << 14, 1 << 15, 1 << 16)
 
 
 def pair_keys(shape, heavy_ties: bool, gen: np.random.Generator) -> torch.Tensor:
@@ -600,12 +660,24 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
         launches_per_call=tiers.get("launches"),
     )
 
+    # K6 at every boundary of its tiers, every key dtype and payload width
+    err6, batches = 0.0, 0
+    for name in ("int8", "int16", "int32", "int64", "float32"):
+        for m in ROW_PAIR_SIZES:
+            for vdt in (torch.bool, torch.bfloat16, torch.int32, torch.float64):
+                y, ylens = row_batch(12, m, TORCH_KEY[name], gen)
+                yv = payload((12, m), vdt, gen)
+                err6 = max(err6, same_pairs(batched.batched_row_sort_pairs(y, yv, ylens),
+                                            batched.batched_row_sort_pairs_plain(y, yv, ylens),
+                                            f"batched_row_sort_pairs {name}/{vdt} (12, {m})"))
+                batches += 1
+    print(f"batched_row_sort_pairs: {batches} batches at every tier boundary equal the plain version bit for bit")
     # K6 at (64, 8192) int32/int32, random lengths, garbage in the pads.
     x = random_keys((64, 8192), torch.int32, gen)
     xv = random_keys((64, 8192), torch.int32, gen)
     lens = torch.from_numpy(gen.integers(0, 8193, 64).astype(np.int32)).to(DEV)
     got = batched.batched_row_sort_pairs(x, xv, lens)
-    err = same_pairs(got, batched.batched_row_sort_pairs_plain(x, xv, lens), "batched_row_sort_pairs (64, 8192)")
+    err = max(err6, same_pairs(got, batched.batched_row_sort_pairs_plain(x, xv, lens), "batched_row_sort_pairs (64, 8192)"))
     hk, hv = got[0].cpu().numpy(), got[1].cpu().numpy()
     xk, xvh = x.cpu().numpy(), xv.cpu().numpy()
     for i, ln in enumerate(lens.cpu().tolist()):
@@ -628,7 +700,20 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
         fail("a row past one block did not go through the multi-pass pair kernel")
     ms = cuda_ms(lambda: batched.batched_row_sort_pairs(x, xv, lens))
     # the event time above includes the wrapper's host work; this is the kernel's own
-    k6_device = profile_request("batched_row_sort_pairs (64, 8192)", lambda: batched.batched_row_sort_pairs(x, xv, lens))
+    profile_request("batched_row_sort_pairs (64, 8192)", lambda: batched.batched_row_sort_pairs(x, xv, lens))
+    k6 = launch_profile("batched_row_sort_pairs (64, 8192) int32/int32",
+                        lambda: batched.batched_row_sort_pairs(x, xv, lens), "pair_")
+    print(f"kernel batched_row_sort_pairs (64, 8192) int32/int32: {ms:.4f} ms by events, device "
+          f"{k6.get('device_ms')} ms, {k6.get('launches')} launches a call")
+    y64 = random_keys((64, 8192), torch.int64, gen)
+    v64 = payload((64, 8192), torch.float64, gen)
+    err = max(err, same_pairs(batched.batched_row_sort_pairs(y64, v64, lens),
+                              batched.batched_row_sort_pairs_plain(y64, v64, lens), "batched_row_sort_pairs int64/float64"))
+    k6w = launch_profile("batched_row_sort_pairs (64, 8192) int64/float64",
+                         lambda: batched.batched_row_sort_pairs(y64, v64, lens), "pair_")
+    print(f"kernel batched_row_sort_pairs (64, 8192) int64/float64: "
+          f"{cuda_ms(lambda: batched.batched_row_sort_pairs(y64, v64, lens)):.4f} ms by events, device "
+          f"{k6w.get('device_ms')} ms, {k6w.get('launches')} launches a call")
     plain = cuda_ms(lambda: batched.batched_row_sort_pairs_plain(x, xv, lens), reps=3)
     lib = cuda_ms(lambda: torch.sort(x, dim=-1))
     valid = int(lens.sum())
@@ -637,7 +722,7 @@ def pair_kernel_checks(gen: np.random.Generator) -> dict:
         route="cuda", source="src/repro_torch/kernels/csrc/batched.cu",
         replaces="src/repro/kernels/batched.py:181", max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-        shape="(64, 8192) int32/int32", device_ms=k6_device,
+        shape="(64, 8192) int32/int32", device_ms=k6.get("device_ms"), launches_per_call=k6.get("launches"),
     )
 
     # K7 at 2^19: the untagged pair sort (its tier boundaries ran above).

@@ -4,7 +4,9 @@ Counterpart of ``repro.kernels.batched.batched_row_sort`` (Pallas TPU),
 the engine's serving primitive under ``sort_segments``: row ``i`` of the
 result is ``sorted(padded[i, :seg_lens[i]])`` followed by a dtype-max
 tail, whatever the pad cells held on entry.  The kernel
-(``csrc/batched.cu``) sorts one row per block in shared memory.
+(``csrc/batched.cu``) runs the tile sort's tiers with the refill made on
+load: an int32 or float32 row of up to 8,192 keys is one block's chunk and
+one launch; a longer row takes the tile sort's later launches.
 
 Two compare-exchange stages, as in the reference:
 
@@ -47,7 +49,7 @@ __all__ = [
 
 METHODS = ("bitonic", "bitonic2op")
 
-# One row lives in one block's shared memory: 8192 keys of 8 bytes.
+# The longest row the reference's callers hand it: 8192 keys of 8 bytes.
 MAX_ROW_BYTES = 64 * 1024
 # A pair row's keys, payloads and one tag byte a pair, against the 227 KB
 # of shared memory a block may opt into on Hopper.

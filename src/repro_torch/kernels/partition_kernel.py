@@ -26,7 +26,8 @@ from repro_torch.kernels import _build, bitonic
 # Bucket count the kernel takes: its shared memory holds sixteen warps'
 # 16-bit running counts and the tile's counts, 144 KiB at 4,096.
 MAX_BUCKETS = 4096
-# The kernel's status words hold a count in 30 bits, so it takes fewer ids.
+# The kernel's status words hold a count in 30 bits, so one launch takes
+# at most this many ids.
 MAX_KERNEL_IDS = (1 << 30) - 1
 
 _PLAIN_CHUNK = 1 << 16
@@ -58,30 +59,32 @@ def bucket_count_rank_plain(ids: torch.Tensor, num_buckets: int):
     return counts, ranks
 
 
-def bucket_count_rank(ids: torch.Tensor, num_buckets: int, *, debug: bool = False):
-    """Histogram + stable ranks for flat int32 ``ids`` in ``[0, num_buckets)``.
+def carry_chunks(ids: torch.Tensor, num_buckets: int, count_rank, chunk: int):
+    """``count_rank(ids, num_buckets)`` as one stable pass over ``ids``,
+    made of calls on consecutive chunks of at most ``chunk`` ids.
 
-    ``n == 0`` short-circuits to empty results.  ``debug=True`` checks the
-    id range on the host first and raises on an id outside it.
-    """
-    _validate(ids, num_buckets)
+    Each chunk's ranks gain the counts of the chunks before it (for ids in
+    range only: an id outside ``[0, num_buckets)`` keeps rank 0 and is not
+    counted), and the counts are summed.  ``n <= chunk`` is one call."""
     n = ids.shape[0]
-    if n == 0:
-        return (
-            torch.zeros(num_buckets, dtype=torch.int32, device=ids.device),
-            torch.zeros(0, dtype=torch.int32, device=ids.device),
-        )
-    if debug:
-        bad = (ids < 0) | (ids >= num_buckets)
-        if bool(bad.any()):
-            offenders = ids[bad][:8].cpu().tolist()
-            raise ValueError(f"bucket ids out of range [0, {num_buckets}): {offenders!r}")
-    if ids.device.type == "cpu":
-        return bucket_count_rank_plain(ids, num_buckets)
-    if not ids.is_contiguous():
-        raise ValueError("bucket_count_rank: ids must be contiguous")
-    if n > MAX_KERNEL_IDS:
-        raise ValueError(f"bucket_count_rank: the kernel takes at most {MAX_KERNEL_IDS} ids, got {n}")
+    if n <= chunk:
+        return count_rank(ids, num_buckets)
+    counts = torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
+    ranks = torch.empty(n, dtype=torch.int32, device=ids.device)
+    for start in range(0, n, chunk):
+        part = ids[start : start + chunk]
+        c, r = count_rank(part, num_buckets)
+        if start:
+            before = counts.index_select(0, part.clamp(0, num_buckets - 1))
+            r += torch.where((part >= 0) & (part < num_buckets), before, 0)
+        ranks[start : start + chunk] = r
+        counts += c
+    return counts, ranks
+
+
+def _launch(ids: torch.Tensor, num_buckets: int):
+    """One launch of the kernel over at most ``MAX_KERNEL_IDS`` ids."""
+    n = ids.shape[0]
     lib = _build.load("partition")
     tile = lib.rt_bcr_tile(num_buckets)
     nblk = -(-n // tile)
@@ -101,6 +104,33 @@ def bucket_count_rank(ids: torch.Tensor, num_buckets: int, *, debug: bool = Fals
     _build.check(lib, code, "bucket_count_rank")
     bucket_count_rank.launches += 1
     return counts, ranks
+
+
+def bucket_count_rank(ids: torch.Tensor, num_buckets: int, *, debug: bool = False):
+    """Histogram + stable ranks for flat int32 ``ids`` in ``[0, num_buckets)``.
+
+    ``n == 0`` short-circuits to empty results.  ``debug=True`` checks the
+    id range on the host first and raises on an id outside it.  On the card
+    more than ``MAX_KERNEL_IDS`` ids take one launch a chunk of that many,
+    the counts carried between them (:func:`carry_chunks`).
+    """
+    _validate(ids, num_buckets)
+    n = ids.shape[0]
+    if n == 0:
+        return (
+            torch.zeros(num_buckets, dtype=torch.int32, device=ids.device),
+            torch.zeros(0, dtype=torch.int32, device=ids.device),
+        )
+    if debug:
+        bad = (ids < 0) | (ids >= num_buckets)
+        if bool(bad.any()):
+            offenders = ids[bad][:8].cpu().tolist()
+            raise ValueError(f"bucket ids out of range [0, {num_buckets}): {offenders!r}")
+    if ids.device.type == "cpu":
+        return bucket_count_rank_plain(ids, num_buckets)
+    if not ids.is_contiguous():
+        raise ValueError("bucket_count_rank: ids must be contiguous")
+    return carry_chunks(ids, num_buckets, _launch, MAX_KERNEL_IDS)
 
 
 bucket_count_rank.launches = 0

@@ -111,6 +111,46 @@ def test_cuda_batched_row_sort_matches_plain(method, cuda_device, rng):
         assert torch.equal(got, batched.batched_row_sort_plain(x, lens, method=method))
 
 
+# Row lengths at every boundary of the row sort's tiers (csrc/batched.cu on
+# key_tiers.cuh): 128 keys (a partial warp), one warp's 512, one chunk of
+# int64 (2^12), int32 (2^13) and int8/int16 (2^14), then rows past the
+# chunk (device windows) up to 64 KiB a row.
+ROW_SIZES = (128, 512, 1 << 12, 1 << 13, 1 << 14, 1 << 15, 1 << 16)
+ROW_DTYPES = (np.int8, np.int16, np.int32, np.int64, np.float32)
+
+
+def _row_keys(rng, rows, n, dtype, device):
+    """16-value ties, some keys equal to the sentinel, signed zeros for
+    float32; lengths at a home run's edges, the row's, past both ends and
+    random; garbage in the pads."""
+    raw = rng.integers(0, 16, (rows, n))
+    if dtype == np.float32:
+        x = (raw - 8).astype(np.float32)
+        x[raw == 15] = np.inf
+        x[(raw == 8) & (rng.random((rows, n)) < 0.5)] = -0.0
+    else:
+        x = raw.astype(dtype)
+        x[raw == 15] = np.iinfo(dtype).max
+    lens = np.concatenate([[0, 1, 15, 16, 17, n - 1, n, -3, n + 5], rng.integers(0, n + 1, rows - 9)]).astype(np.int32)
+    junk = _keys(rng, (rows, n), dtype)
+    x = np.where(np.arange(n)[None, :] >= lens[:, None], junk, x)
+    return torch.from_numpy(x).to(device), torch.from_numpy(lens).to(device)
+
+
+# every row the wrapper takes: up to MAX_ROW_BYTES a row
+ROW_CASES = [(d, n) for d in ROW_DTYPES for n in ROW_SIZES if n * np.dtype(d).itemsize <= batched.MAX_ROW_BYTES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", batched.METHODS)
+@pytest.mark.parametrize("dtype,n", ROW_CASES, ids=[f"{np.dtype(d).name}-{n}" for d, n in ROW_CASES])
+def test_cuda_batched_row_sort_tiers_match_plain(dtype, n, method, cuda_device, rng):
+    # K4 bit for bit at every tier boundary, every key dtype, both methods
+    x, lens = _row_keys(rng, 16, n, dtype, cuda_device)
+    got = batched.batched_row_sort(x, lens, method=method)
+    assert torch.equal(_bits(got), _bits(batched.batched_row_sort_plain(x, lens, method=method)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_buckets", (1, 37, 2305))
 def test_cuda_bucket_count_rank_matches_plain(num_buckets, cuda_device, rng):
@@ -185,6 +225,28 @@ def test_cuda_batched_row_sort_pairs_matches_plain(length, cuda_device, rng):
         got = batched.batched_row_sort_pairs(k, v, lens)
         want = batched.batched_row_sort_pairs_plain(k, v, lens)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# Pair row lengths at every boundary of the pair row sort (csrc/batched.cu
+# pair_chunk_rows): under one warp's 256 pairs, one warp, one thread's runs
+# doubling up to a row that fills one block's shared memory, and a row past
+# it (the fill in torch, then the pair sort's launches).
+ROW_PAIR_SIZES = (128, 256, 512, 2048, 8192, 1 << 14, 1 << 15, 1 << 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ROW_PAIR_SIZES)
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_cuda_batched_row_sort_pairs_tiers_match_plain(dtype, n, cuda_device, rng):
+    # K6 bit for bit, every key dtype and payload width: ties broken by the
+    # payload order show a wrong schedule even where the keys sort
+    for vdtype in (torch.bool, torch.bfloat16, torch.int32, torch.float64):
+        k, lens = _row_keys(rng, 12, n, dtype, cuda_device)
+        v = _card_payload(rng, (12, n), vdtype, cuda_device)
+        bits = bitonic._BITS[v.element_size()]
+        got = batched.batched_row_sort_pairs(k, v, lens)
+        want = batched.batched_row_sort_pairs_plain(k, v, lens)
+        assert torch.equal(_bits(got[0]), _bits(want[0])) and torch.equal(got[1].view(bits), want[1].view(bits))
 
 
 @pytest.mark.cuda
@@ -317,3 +379,34 @@ def test_cuda_bucket_count_rank_unaligned_ids_match_plain(cuda_device, rng):
     ids = buf[1:]
     assert ids.data_ptr() % 16
     _same_counts_ranks(ids, 37)
+
+
+@pytest.mark.cuda
+def test_cuda_bucket_count_rank_past_one_launch_is_one_stable_pass(cuda_device):
+    # 2^30 + 2^20 ids, past the kernel's 2^30 - 1 a launch: two launches with
+    # the counts carried.  The oracle: torch.bincount, and each id's rank
+    # read off a stable torch.sort (out-of-range ids in a bucket of their
+    # own, then rank 0).  About 30 GB of the card at the peak.
+    n, nb = (1 << 30) + (1 << 20), 37
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.randint(0, nb, (n,), dtype=torch.int32, device=cuda_device, generator=gen)
+    ids[-(1 << 19) :: 7] = -1
+    ids[-(1 << 18) :: 5] = nb
+    before = partition_kernel.bucket_count_rank.launches
+    counts, ranks = partition_kernel.bucket_count_rank(ids, nb)
+    assert partition_kernel.bucket_count_rank.launches == before + 2
+    valid = (ids >= 0) & (ids < nb)
+    keyed = torch.where(valid, ids, nb)
+    assert torch.equal(counts, torch.bincount(keyed, minlength=nb + 1)[:nb].to(torch.int32))
+    del ids
+    starts = torch.cumsum(torch.bincount(keyed, minlength=nb + 1), 0) - torch.bincount(keyed, minlength=nb + 1)
+    order_vals, order = torch.sort(keyed, stable=True)
+    del keyed
+    want = torch.empty(n, dtype=torch.int32, device=cuda_device)
+    step = 1 << 27
+    for a in range(0, n, step):
+        pos = torch.arange(a, min(a + step, n), device=cuda_device)
+        want[order[a : a + step]] = (pos - starts[order_vals[a : a + step].long()]).to(torch.int32)
+    del order, order_vals
+    want[~valid] = 0
+    assert torch.equal(ranks, want)

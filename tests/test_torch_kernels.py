@@ -153,12 +153,18 @@ def test_merge_tile_pairs_odd_half_pass_leaves_the_ends(rng):
         _same(out[r, 1:3].ravel(), np.sort(tiles[r, 1:3].ravel()))
 
 
+def _csrc_constant(name, source):
+    """The value of ``constexpr int name`` in ``csrc/<source>``."""
+    text = (Path(bitonic.__file__).parent / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (-?\d+);", text).group(1))
+
+
 def _key_tier_constants():
-    """(LOG_E, log2 chunk keys) of csrc/bitonic.cu's key tiers for each key
-    dtype, computed from its constants as key_log_e / key_log_chunk do."""
-    src = (Path(bitonic.__file__).parent / "csrc" / "bitonic.cu").read_text()
-    log_e = int(re.search(r"constexpr int kLogKeyE = (\d+);", src).group(1))
-    chunk_bytes = int(re.search(r"constexpr int kLogKeyChunkBytes = (\d+);", src).group(1))
+    """(LOG_E, log2 chunk keys) of the key tiers (csrc/key_tiers.cuh) for
+    each key dtype, computed from its constants as key_log_e / key_log_chunk
+    do."""
+    log_e = _csrc_constant("kLogKeyE", "key_tiers.cuh")
+    chunk_bytes = _csrc_constant("kLogKeyChunkBytes", "key_tiers.cuh")
     out = {}
     for dt in (torch.int8, torch.int16, torch.int32, torch.int64, torch.float32):
         log_size = torch.empty((), dtype=dt).element_size().bit_length() - 1
@@ -167,7 +173,16 @@ def _key_tier_constants():
     return out
 
 
-def _held_cx(k, cells, bit, s):
+def _cx(a, b, asc, two_op=False):
+    """The pair (a, b) as the kernels leave it: min and max by the select on
+    b < a (max as a + b - min, wrapping, with ``two_op``)."""
+    b_lt_a = b < a
+    mn = torch.where(b_lt_a, b, a)
+    mx = a + b - mn if two_op else torch.where(b_lt_a, a, b)
+    return torch.where(asc, mn, mx), torch.where(asc, mx, mn)
+
+
+def _held_cx(k, cells, bit, s, two_op=False):
     """Held key r meets r + 2^bit in every thread (k: (segs, threads, E)),
     the pair left as the kernels leave it; the direction is bit s+1 of the
     lower key's index in its segment (``cells``: (threads, E))."""
@@ -175,11 +190,29 @@ def _held_cx(k, cells, bit, s):
     r = torch.arange(e)
     lo = r[(r >> bit) & 1 == 0]
     hi = lo + (1 << bit)
-    a, b = k[..., lo], k[..., hi]
     asc = ((cells[:, lo] >> (s + 1)) & 1) == 0
-    b_lt_a = b < a
-    mn, mx = torch.where(b_lt_a, b, a), torch.where(b_lt_a, a, b)
-    k[..., lo], k[..., hi] = torch.where(asc, mn, mx), torch.where(asc, mx, mn)
+    k[..., lo], k[..., hi] = _cx(k[..., lo], k[..., hi], asc, two_op)
+
+
+def _distance(x, s, j, two_op=False):
+    """Distance 2^j of stage s on every pair (i, i + 2^j) of each row of x,
+    the direction from bit s+1 of i: what a chunk launch's tiers do to
+    every pair of a distance below the chunk."""
+    i = torch.arange(x.shape[-1])
+    lo = i[(i >> j) & 1 == 0]
+    hi = lo + (1 << j)
+    asc = ((lo >> (s + 1)) & 1) == 0
+    x[:, lo], x[:, hi] = _cx(x[:, lo], x[:, hi], asc, two_op)
+
+
+def _window_cells(n, log_e, jb):
+    """Each thread's cells in a window with register bits jb .. jb+log_e-1
+    (spread(u, jb) + (r << jb)), checked to cover the n cells once."""
+    u = torch.arange(n >> log_e)
+    base = ((u >> jb) << (jb + log_e)) | (u & ((1 << jb) - 1))
+    cells = base[:, None] + (torch.arange(1 << log_e) << jb)
+    assert torch.equal(torch.bincount(cells.reshape(-1), minlength=n), torch.ones(n, dtype=torch.long))
+    return cells
 
 
 def _k3_schedule_model(x, log_e, log_c):
@@ -217,9 +250,7 @@ def _k3_schedule_model(x, log_e, log_c):
         while jhi >= log_c:
             jlo = max(jhi - (log_e - 1), log_c)
             jb = min(jlo, log_seg - log_e)
-            u = torch.arange(n >> log_e)
-            base = ((u >> jb) << (jb + log_e)) | (u & ((1 << jb) - 1))
-            cells = base[:, None] + (torch.arange(e) << jb)
+            cells = _window_cells(n, log_e, jb)
             k = x[:, cells]
             for j in range(jhi, jlo - 1, -1):
                 _held_cx(k, cells, j - jb, s)
@@ -227,15 +258,8 @@ def _k3_schedule_model(x, log_e, log_c):
             jhi = jlo - 1
         j0 = log_c - 1
     # key_chunk_stages: the distances below the chunk, each on every pair
-    i = torch.arange(n)
     for j in range(j0, -1, -1):
-        lo = i[(i >> j) & 1 == 0]
-        hi = lo + (1 << j)
-        a, b = x[:, lo], x[:, hi]
-        asc = ((lo >> (s + 1)) & 1) == 0
-        b_lt_a = b < a
-        mn, mx = torch.where(b_lt_a, b, a), torch.where(b_lt_a, a, b)
-        x[:, lo], x[:, hi] = torch.where(asc, mn, mx), torch.where(asc, mx, mn)
+        _distance(x, s, j)
     return x
 
 
@@ -275,6 +299,232 @@ def test_k3_schedule_model_is_the_plain_merge_bit_for_bit(dtype, case, log_seg, 
                        want.view(torch.int32) if dtype == torch.float32 else want)
     if case == "signed_zeros":
         assert (torch.signbit(got) & (got == 0)).any() and (~torch.signbit(got) & (got == 0)).any()
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The schedule models run many indexing ops on small rows; with several
+    test workers on one machine, torch's intra-op threads only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _filled_runs(x, lens, e, fill):
+    """The fill on load of K4 / K6, home run by home run (E keys at g0): a
+    run wholly at or past its row's length is not read (all ``fill``); one
+    that straddles it is read, then selected key by key on the signed
+    pos < len.  Returns the filled rows and the pad mask."""
+    rows, n = x.shape
+    g0 = torch.arange(0, n, e)
+    lens = lens.to(torch.int64)[:, None]
+    unread = g0[None, :] >= lens  # (rows, runs)
+    straddle = ~unread & (g0[None, :] + e > lens)
+    pos = g0[:, None] + torch.arange(e)  # (runs, E)
+    pad = unread[..., None] | (straddle[..., None] & (pos[None] >= lens[..., None]))
+    out = x.reshape(rows, -1, e).clone()
+    out[unread] = fill  # never read: garbage there cannot show
+    out[pad] = fill
+    return out.reshape(rows, n), pad.reshape(rows, n)
+
+
+def _k4_schedule_model(x, lens, log_e, log_c, two_op):
+    """csrc/batched.cu's row sort (K4) on rows ``x`` (rows, L), by the
+    kernels' index arithmetic: the first chunk launch fills on load and
+    runs stages 0 .. log_c-1 on each chunk; each later stage takes device
+    windows of LOG_E distances (register bits jb ..) down to the chunk,
+    then one chunk launch for its distances below the chunk."""
+    n = x.shape[-1]
+    log_n = n.bit_length() - 1
+    log_c = min(log_c, log_n)
+    x, _ = _filled_runs(x, lens, 1 << log_e, dtypes.max_sentinel(x.dtype))
+    for s in range(log_n):
+        jhi = s
+        while jhi >= log_c:
+            jlo = max(jhi - (log_e - 1), log_c)
+            jb = min(jlo, log_n - log_e)
+            cells = _window_cells(n, log_e, jb)
+            k = x[:, cells]
+            for j in range(jhi, jlo - 1, -1):
+                _held_cx(k, cells, j - jb, s, two_op)
+            x[:, cells] = k
+            jhi = jlo - 1
+        for j in range(min(s, log_c - 1), -1, -1):
+            _distance(x, s, j, two_op)
+    return x
+
+
+def _row_lengths(n):
+    # empty, one key, around a 16-key home run, one short of the row, the
+    # row, and the plain version's signed compare past both ends
+    return torch.tensor([0, 1, 15, 16, 17, n - 1, n, -3, n + 5], dtype=torch.int32)
+
+
+def _model_keys(rng, shape, dtype):
+    """Keys from 16 values (ties), some equal to the dtype-max sentinel;
+    float32 keys with -0.0 and +0.0 among them."""
+    raw = rng.integers(0, 16, shape)
+    if dtype == torch.float32:
+        x = torch.from_numpy((raw - 8).astype(np.float32))
+        x[torch.from_numpy(raw == 15)] = float("inf")
+        zero = torch.from_numpy((raw == 8) & (rng.random(shape) < 0.5))
+        x[zero] = -0.0
+        return x
+    x = torch.from_numpy(raw).to(dtype)
+    x[torch.from_numpy(raw == 15)] = torch.iinfo(dtype).max
+    return x
+
+
+def _garbage_pads(rng, x, lens):
+    """Full-range garbage at and past each row's length."""
+    pos = torch.arange(x.shape[-1])
+    pad = pos[None, :] >= lens.to(torch.int64)[:, None]
+    junk = torch.from_numpy(_keys(rng, tuple(x.shape), np.dtype(str(x.dtype)[6:])))
+    return torch.where(pad, junk, x)
+
+
+def _bits_of(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+K4_MODEL_CASES = [
+    (dt, log_n)
+    for dt in (torch.int8, torch.int16, torch.int32, torch.int64, torch.float32)
+    for log_n in range(7, 17 - (torch.empty((), dtype=dt).element_size().bit_length() - 1))
+]
+
+
+@pytest.mark.parametrize("method", batched.METHODS)
+@pytest.mark.parametrize("dtype,log_n", K4_MODEL_CASES, ids=[f"{str(d)[6:]}-2^{k}" for d, k in K4_MODEL_CASES])
+def test_k4_schedule_model_is_the_plain_row_sort_bit_for_bit(dtype, log_n, method, rng, one_torch_thread):
+    # The CUDA row sort's fill on load, chunk launches and device windows,
+    # modelled by their index sets and held to the plain version before any
+    # chip run, at every row length up to 64 KiB a row: 16-value ties,
+    # float32 signed zeros, keys equal to the sentinel, garbage in the pads.
+    n = 1 << log_n
+    lens = _row_lengths(n)
+    x = _garbage_pads(rng, _model_keys(rng, (lens.numel(), n), dtype), lens)
+    log_e, log_c = _key_tier_constants()[dtype]
+    two_op = method == "bitonic2op" and not dtype.is_floating_point
+    got = _k4_schedule_model(x, lens, log_e, log_c, two_op)
+    want = batched.batched_row_sort_plain(x, lens, method=method)
+    assert torch.equal(_bits_of(got), _bits_of(want))
+    if dtype == torch.float32:
+        assert (torch.signbit(got) & (got == 0)).any() and (~torch.signbit(got) & (got == 0)).any()
+
+
+def _pair_cx(k, t, v, lo, hi, asc):
+    """The reference's (tag, key) exchange on the pairs at index sets lo and
+    hi of the last axis, in place; ties never swap."""
+    ka, kb, ta, tb = k[..., lo], k[..., hi], t[..., lo], t[..., hi]
+    gt = (ta > tb) | ((ta == tb) & (ka > kb))
+    lt = (ta < tb) | ((ta == tb) & (ka < kb))
+    swap = torch.where(asc, gt, lt)
+    for z in (k, t, v):
+        a, b = z[..., lo], z[..., hi]
+        z[..., lo], z[..., hi] = torch.where(swap, b, a), torch.where(swap, a, b)
+
+
+def _k6_schedule_model(k, v, lens, log_e, log_b, log_t):
+    """csrc/batched.cu's pair row sort (K6, pair_chunk_rows) on rows
+    (rows, L), by the kernel's index arithmetic: a cluster of 2^log_b
+    blocks a row, each holding a span of it; threads take home runs of
+    2^log_e pairs in turn, filled on load; stages within a warp's 32 runs
+    run on them; each later stage takes its distances past the span
+    between the blocks (each block a share of the row's pairs), then
+    shared-memory windows of log_e distances in each span (each thread
+    taking bases u = t, t + threads, ...), then the distances within a
+    warp's runs again."""
+    rows, n = k.shape
+    log_n = n.bit_length() - 1
+    log_span = log_n - log_b
+    span = 1 << log_span
+    e, nt = 1 << log_e, 1 << min(log_t, log_span - log_e)
+    log_w = min(log_span, log_e + 5)
+    # pass q, thread t of a block holds run q*nt + t of its span: a warp's
+    # 32 lanes (or all of a smaller block) hold consecutive runs, so every
+    # shuffle partner (distance below 2^log_w) sits in the same pass
+    run = torch.arange(span // (e * nt))[:, None] * nt + torch.arange(nt)
+    assert torch.equal(run.reshape(-1), torch.arange(span // e))
+    lanes = run.reshape(-1, min(nt, 32))
+    assert torch.equal(lanes - lanes[:, :1], torch.arange(min(nt, 32)).expand_as(lanes))
+    assert ((lanes[:, 0] * e) % (1 << log_w) == 0).all()
+    k, pad = _filled_runs(k, lens, e, dtypes.max_sentinel(k.dtype))
+    v = torch.where(pad, torch.zeros((), dtype=v.dtype), v)
+    t = pad.to(torch.uint8)
+    i = torch.arange(n)
+
+    def within_warp(s, jhi):
+        for j in range(jhi, -1, -1):
+            lo = i[(i >> j) & 1 == 0]
+            _pair_cx(k, t, v, lo, lo + (1 << j), ((lo >> (s + 1)) & 1) == 0)
+
+    for s in range(log_w):
+        within_warp(s, s)
+    for s in range(log_w, log_n):
+        j = s
+        while j >= log_span:
+            # block b takes pairs p of [b, b + 1) * n / 2^(log_b + 1)
+            p = torch.arange(n // 2)
+            lo = ((p >> j) << (j + 1)) | (p & ((1 << j) - 1))
+            assert torch.equal(torch.bincount(torch.cat([lo, lo + (1 << j)]), minlength=n), torch.ones(n, dtype=torch.long))
+            _pair_cx(k, t, v, lo, lo + (1 << j), ((lo >> (s + 1)) & 1) == 0)
+            j -= 1
+        while j >= log_w:
+            jlo = max(j - (log_e - 1), log_w)
+            jb = min(jlo, log_span - log_e)
+            cells = torch.cat([b * span + _window_cells(span, log_e, jb) for b in range(1 << log_b)])
+            for jj in range(j, jlo - 1, -1):
+                r = torch.arange(e)
+                rl = r[(r >> (jj - jb)) & 1 == 0]
+                lo, hi = cells[:, rl].reshape(-1), cells[:, rl + (1 << (jj - jb))].reshape(-1)
+                _pair_cx(k, t, v, lo, hi, ((lo >> (s + 1)) & 1) == 0)
+            j = jlo - 1
+        within_warp(s, log_w - 1)
+    return k, v
+
+
+K6_MODEL_CASES = [
+    (dt, vdt, log_n)
+    for dt, vdt in ((torch.int8, torch.int32), (torch.int16, torch.int32), (torch.int32, torch.int32),
+                    (torch.int64, torch.float64), (torch.float32, torch.int32))
+    for log_n in range(7, 18)
+    if (torch.empty((), dtype=dt).element_size() + torch.empty((), dtype=vdt).element_size() + 1) << log_n
+    <= batched.MAX_PAIR_ROW_BYTES
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,vdtype,log_n", K6_MODEL_CASES, ids=[f"{str(d)[6:]}-{str(w)[6:]}-2^{k}" for d, w, k in K6_MODEL_CASES]
+)
+def test_k6_schedule_model_is_the_plain_pair_row_sort_bit_for_bit(dtype, vdtype, log_n, rng, one_torch_thread):
+    # The same for the pair row sort, at every row length one block's shared
+    # memory takes: ties broken by payload order show a wrong schedule.
+    n = 1 << log_n
+    lens = _row_lengths(n)
+    k = _garbage_pads(rng, _model_keys(rng, (lens.numel(), n), dtype), lens)
+    v = torch.from_numpy(rng.integers(-(2**62), 2**62, (lens.numel(), n))).to(bitonic._BITS[
+        torch.empty((), dtype=vdtype).element_size()]).view(vdtype)
+    log_e = _csrc_constant("kLogE", "pair_tiers.cuh")
+    got_k, got_v = _k6_schedule_model(k, v, lens, log_e, _csrc_constant("kLogRowPairBlocks", "batched.cu"),
+                                      _csrc_constant("kLogRowPairThreads", "batched.cu"))
+    want_k, want_v = batched.batched_row_sort_pairs_plain(k, v, lens)
+    bits = bitonic._BITS[v.element_size()]
+    assert torch.equal(_bits_of(got_k), _bits_of(want_k))
+    assert torch.equal(got_v.view(bits), want_v.view(bits))
+
+
+@pytest.mark.parametrize("chunk", (1, 300, 1234, 5000))
+def test_bucket_count_rank_chunk_carry_is_one_pass(chunk, rng):
+    # The card's launches past MAX_KERNEL_IDS ids, driven here by the plain
+    # version: each chunk's ranks gain the counts of the chunks before it,
+    # out-of-range ids stay rank 0 and uncounted.
+    ids = torch.from_numpy(rng.integers(-2, 9, 5000).astype(np.int32))
+    ids[::97] = -(2**31)
+    got = partition_kernel.carry_chunks(ids, 7, partition_kernel.bucket_count_rank_plain, chunk)
+    want = partition_kernel.bucket_count_rank_plain(ids, 7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize(

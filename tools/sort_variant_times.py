@@ -1,17 +1,23 @@
-"""Time the tile sort (K2), the pair sort (K5, K7), the merge (K3) or the
-count/rank (K1) built with other constants.
+"""Time the tile sort (K2), the pair sort (K5, K7), the merge (K3), the
+count/rank (K1), the row sort (K4) or the pair row sort (K6) built with
+other constants.
 
     python3 tools/sort_variant_times.py tile "kLogKeyE=4" "kLogKeyE=3"
     python3 tools/sort_variant_times.py tile "kLogKeyChunkBytes=15" "kLogKeyChunkBytes=16"
     python3 tools/sort_variant_times.py pairs "kLogPairChunk=11" "kLogPairChunk=12"
     python3 tools/sort_variant_times.py merge "" "csrc=build/parent/src/repro_torch/kernels/csrc"
     python3 tools/sort_variant_times.py bcr "" "kBcrThreadBuckets=0" "kBcrItems=32" "kBcrWarpsLarge=8"
+    python3 tools/sort_variant_times.py rows "" "kLogKeyChunkBytes=16"
+    python3 tools/sort_variant_times.py rowpairs "" "kLogRowPairBlocks=0" "kLogRowPairThreads=9"
         [--rounds 6] [--reps 21]
 
-``csrc/bitonic.cu`` fixes each sort's tiers with plain constants: the keys
-a thread holds (``kLogKeyE``) and the bytes a block holds
-(``kLogKeyChunkBytes``) for K2 and K3, the pairs a block holds
-(``kLogPairChunk``) for K5 and K7; ``csrc/partition.cu`` fixes K1's ids a
+The sorts' tiers are fixed by plain constants in ``csrc/``: the keys a
+thread holds (``kLogKeyE``) and the bytes a block holds
+(``kLogKeyChunkBytes``) for K2 and K3 (``key_tiers.cuh``), the pairs a
+block holds (``kLogPairChunk``) for K5 and K7 (``pair_tiers.cuh``; K4 takes K2's
+tiers); K6's blocks a row (``kLogRowPairBlocks``, a cluster) and threads
+a block (``kLogRowPairThreads``) in ``batched.cu``; ``csrc/partition.cu``
+fixes K1's ids a
 thread (``kBcrItems``, ``kBcrItemsLarge``), warps a block (``kBcrWarps``,
 ``kBcrWarpsLarge``), look-back window (``kBcrWindow``,
 ``kBcrWindowLarge``) and the bucket count up to which each thread counts
@@ -19,12 +25,13 @@ its own ids (``kBcrThreadBuckets``; 0 ranks every B by
 ``__match_any_sync``).  Each variant is a list of ``NAME=VALUE``
 settings, and may name ``csrc=DIR``: the sources of another checkout (an
 earlier commit unpacked with ``git archive``) in place of this one's.  This
-script copies the sources once for each variant, with those constants
-rewritten, builds the copies (one nvcc each, all at once, into
-``build/repro_torch/variant<i>/``) and times each through the wrappers a
-caller uses (``bitonic.sort_tile``; ``bitonic.sort_pairs_tile_tagged`` and
-``bitonic.sort_pairs_tile``; ``bitonic.merge_tile_pairs``;
-``partition_kernel.bucket_count_rank``).  Each variant is first held bit
+script copies the sources once for each variant, with each constant
+rewritten in the one source or header that defines it, builds the copies
+(one nvcc each, all at once, into ``build/repro_torch/variant<i>/``) and
+times each through the wrappers a caller uses (``bitonic.sort_tile``;
+``bitonic.sort_pairs_tile_tagged`` and ``bitonic.sort_pairs_tile``;
+``bitonic.merge_tile_pairs``; ``partition_kernel.bucket_count_rank``;
+``batched.batched_row_sort``, both methods; ``batched.batched_row_sort_pairs``).  Each variant is first held bit
 for bit against the plain version.  A time is the median over calls of
 CUDA events around one wrapper call (its host work included); the
 variants take turns round by round (A B, then B A, ...), so drift falls on
@@ -50,16 +57,19 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import devtrace  # noqa: E402
-from repro_torch.kernels import _build, bitonic, partition_kernel  # noqa: E402
+from repro_torch.kernels import _build, batched, bitonic, partition_kernel  # noqa: E402
 
 # Each mode's source (csrc/<name>.cu) and the names of its device events
 # for the profiler: its kernels, then anything else its call runs.
-SOURCE = {"tile": "bitonic", "pairs": "bitonic", "merge": "bitonic", "bcr": "partition"}
+SOURCE = {"tile": "bitonic", "pairs": "bitonic", "merge": "bitonic", "bcr": "partition",
+          "rows": "batched", "rowpairs": "batched"}
 KERNEL_PREFIX = {
     "tile": ("key_",), "pairs": ("pair_",),
     # K3's kernels, and those of its first schedule (an earlier checkout)
     "merge": ("key_", "merge_first", "global_stage", "smem_stages"),
     "bcr": ("bcr", "Memset"),
+    # K4's and K6's kernels, and those of their first schedule (smem_stages, smem_stages_pairs)
+    "rows": ("key_", "smem_stages"), "rowpairs": ("pair_", "smem_stages"),
 }
 
 
@@ -82,15 +92,20 @@ def build(variants: list[dict], source: str) -> list[ctypes.CDLL]:
         out = _build.BUILD_DIR / f"variant{i}"
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(settings.get("csrc", _build.CSRC), out / "csrc")
-        src = out / "csrc" / f"{source}.cu"
-        text = src.read_text()
+        files = sorted((out / "csrc").glob("*.cu")) + sorted((out / "csrc").glob("*.cuh"))
         for name, value in settings.items():
             if name == "csrc":
                 continue
-            text, found = re.subn(rf"constexpr int {name} = -?\d+;", f"constexpr int {name} = {value};", text)
+            found = 0
+            for path in files:
+                text, k = re.subn(rf"constexpr int {name} = -?\d+;", f"constexpr int {name} = {value};",
+                                  path.read_text())
+                if k:
+                    path.write_text(text)
+                found += k
             if found != 1:
-                sys.exit(f"sort_variant_times.py: {source}.cu defines {name} {found} times, expected once")
-        src.write_text(text)
+                sys.exit(f"sort_variant_times.py: csrc/ defines {name} {found} times, expected once")
+        src = out / "csrc" / f"{source}.cu"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / f"{source}.so"), str(src)]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = []
@@ -211,7 +226,49 @@ def bcr_cases(dev, gen):
     return cases
 
 
-CASES = {"tile": tile_cases, "pairs": pair_cases, "merge": merge_cases, "bcr": bcr_cases}
+def row_lens(gen, rows: int, n: int, dev) -> torch.Tensor:
+    return torch.from_numpy(gen.integers(0, n + 1, rows).astype(np.int32)).to(dev)
+
+
+def row_cases(dev, gen):
+    """(label, call, plain call) for K4 at sort_segments' batch, (64, 8192),
+    with random lengths and garbage in the pads: int32 and int64 by both
+    methods, float32, and int8 rows of 2^16 keys (the longest it takes)."""
+    def keys(shape, dtype):
+        if dtype == np.float32:
+            return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).to(dev)
+        info = np.iinfo(dtype)
+        return torch.from_numpy(gen.integers(info.min, info.max, shape, dtype=np.int64, endpoint=True).astype(dtype)).to(dev)
+
+    cases = []
+    for shape, dtype, methods in (((64, 8192), np.int32, batched.METHODS), ((64, 8192), np.float32, ("bitonic",)),
+                                  ((64, 8192), np.int64, batched.METHODS), ((64, 1 << 16), np.int8, ("bitonic",))):
+        x, lens = keys(shape, dtype), row_lens(gen, shape[0], shape[1], dev)
+        for m in methods:
+            cases.append((f"K4 {shape} {np.dtype(dtype).name} {m}",
+                          lambda x=x, lens=lens, m=m: batched.batched_row_sort(x, lens, method=m),
+                          lambda x=x, lens=lens, m=m: batched.batched_row_sort_plain(x, lens, method=m)))
+    return cases
+
+
+def row_pair_cases(dev, gen):
+    """(label, call, plain call) for K6 at (64, 8192) int32/int32 (the
+    kernels line's shape), int64/float64 and a shorter row."""
+    cases = []
+    for shape, kdt, vdt in (((64, 8192), torch.int32, torch.int32), ((64, 8192), torch.int64, torch.float64),
+                            ((64, 2048), torch.int32, torch.int32)):
+        info = torch.iinfo(kdt)
+        k = torch.from_numpy(gen.integers(info.min, info.max, shape, endpoint=True)).to(kdt).to(dev)
+        v = torch.from_numpy(gen.integers(-(2**62), 2**62, shape)).to(bitonic._BITS[vdt.itemsize]).view(vdt).to(dev)
+        lens = row_lens(gen, shape[0], shape[1], dev)
+        cases.append((f"K6 {shape} {str(kdt)[6:]}/{str(vdt)[6:]}",
+                      lambda k=k, v=v, lens=lens: batched.batched_row_sort_pairs(k, v, lens),
+                      lambda k=k, v=v, lens=lens: batched.batched_row_sort_pairs_plain(k, v, lens)))
+    return cases
+
+
+CASES = {"tile": tile_cases, "pairs": pair_cases, "merge": merge_cases, "bcr": bcr_cases, "rows": row_cases,
+         "rowpairs": row_pair_cases}
 
 
 def main() -> None:
