@@ -42,11 +42,24 @@ no result line):
 6. the workloads: ``top_k`` at 15,728,640 int32 keys with k = n/2 (the
    sim path) and k = 1,000 (the host head), and ``merge_sorted`` of 2^20
    new keys into a sorted 2^22 buffer, against ``np.sort``;
-7. a ``kernels`` JSON line with each kernel's launches on its path
+7. serving: (a) ``Sortd`` over ``SortEngine()`` with the reference sortd
+   benchmark's request mix, 600 requests from 8 closed-loop clients, int32
+   and float32, at its ``SortdConfig(max_batch=64, max_wait_s=0.005,
+   max_bucket=4096)`` and at the default ``SortdConfig()`` with a 15 %
+   tail of 8,193-32,768-key requests (the bucket path, K1 and K2), then
+   16 ``submit_merge`` ticks into a growing buffer; (b) the fault ladder:
+   the five scenarios of the reference's fault benchmark at d_h = 1
+   through ``Sortd.set_fault_scenario``, 100 requests each, then healed;
+   the degraded flushes carry the slowdown a CPU engine quotes, and the
+   two impossible scenarios launch no kernel; (c) ``SortdFleet`` of four
+   workers, 800 requests of ``loadgen.request_mix``, healthy and with the
+   busiest worker killed mid-load; every result against ``np.sort``;
+8. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
-   phase 5 for the tagged pair kernel; the untagged pair kernel and the
-   pair row kernel have no caller on any path and are checked in phase 2
-   only); the launches of single requests are printed on their own lines.
+   phase 5 for the tagged pair kernel, each plus its launches in phase 7;
+   the untagged pair kernel and the pair row kernel have no caller on any
+   path and are checked in phase 2 only); the launches of single requests
+   are printed on their own lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of the JAX package ``repro``.
@@ -54,6 +67,7 @@ JAX or of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -86,6 +100,9 @@ from repro_torch.kernels import (  # noqa: E402
     ref,
     reset_launches,
 )
+from repro_torch.net.faults import FaultScenario  # noqa: E402
+from repro_torch.serve import ChaosConfig, FleetConfig, Sortd, SortdConfig, SortdFleet  # noqa: E402
+from repro_torch.serve.fleet.loadgen import drive_closed_loop, request_mix  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
@@ -1059,6 +1076,257 @@ def workloads_path() -> None:
     request_launches("merge_sorted 2^20 into 2^22", lambda: eng.merge_sorted(buf, new))
 
 
+# ----------------------------------------------------------------- phase 7
+SERVE_REQUESTS, SERVE_CLIENTS = 600, 8  # the reference sortd benchmark at --paper
+FAULT_REQUESTS = 100
+FLEET_REQUESTS, FLEET_WARM = 800, 60  # the reference fleet benchmark at --paper
+PHASE7_KERNELS = ("batched_row_sort", "bucket_count_rank", "sort_tile")
+
+
+def serving_mix(n_req: int, dtype: str, seed: int, *, max_bucket: int = 1 << 12, tail: float = 0.0) -> list:
+    """The reference sortd benchmark's request stream: 2 % oversize
+    (max_bucket + 1 to 2 max_bucket - 1 keys), 48 % of 64-511 keys, 35 % of
+    512-2,047 and 15 % of 2,048-4,095.  With ``tail``, that share of the
+    requests has 8,193-32,768 keys instead: rows past the row kernel's
+    8,192 keys, which a flush sorts on the bucket path."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_req):
+        if tail and rng.random() < tail:
+            n = int(rng.integers(8193, 32769))
+        else:
+            r = rng.random()
+            if r < 0.02:
+                n = int(rng.integers(max_bucket + 1, max_bucket * 2))
+            elif r < 0.50:
+                n = int(rng.integers(64, 512))
+            elif r < 0.85:
+                n = int(rng.integers(512, 2048))
+            else:
+                n = int(rng.integers(2048, 4096))
+        out.append(rng.integers(0, 1 << 30, n).astype(dtype))
+    return out
+
+
+def exact(reqs, outs, what: str) -> None:
+    for x, o in zip(reqs, outs):
+        if o.dtype != x.dtype or not np.array_equal(o, np.sort(x)):
+            fail(f"{what}: a result differs from np.sort")
+
+
+def record_flushes(eng: SortEngine) -> list:
+    """Wrap ``eng.sort_segments`` (a ``Sortd`` flush) to keep each flush's
+    plan, key count and dtype."""
+    plans = []
+    inner = eng.sort_segments
+
+    def sort_segments(keys, seg_lens, **kw):
+        out = inner(keys, seg_lens, **kw)
+        plans.append((eng.last_report["plan"], int(np.sum(seg_lens)), np.asarray(keys).dtype))
+        return out
+
+    eng.sort_segments = sort_segments
+    return plans
+
+
+def serving_stats(m: dict, wall: float, n_req: int) -> str:
+    rows = sum(b["requests"] for k, b in m["buckets"].items() if not k.endswith("/direct"))
+    batches = sum(b["batches"] for k, b in m["buckets"].items() if not k.endswith("/direct"))
+    methods = collections.Counter()
+    for b in m["buckets"].values():
+        methods.update(b["methods"])
+    return (
+        f"p50 {m['latency_ms']['p50']:.3f} ms, p99 {m['latency_ms']['p99']:.3f} ms, "
+        f"{n_req / wall:.1f} requests/s, mean batch {rows / max(batches, 1):.2f}, "
+        f"flushes {m['flushes']}, direct {m['oversize_direct']}, flush methods {dict(methods)}"
+    )
+
+
+def busy_share(label: str, fn) -> None:
+    """The card's busy share over one run of ``fn``: the device time of
+    every kernel and copy it ran (``devtrace``) over its wall time."""
+    walls = []
+
+    def timed_run():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    calls = devtrace.call_events(timed_run, 1)
+    if not calls or not calls[0]:
+        print(f"busy {label}: device time not visible to torch.profiler")
+        return
+    busy = sum(ms for _, ms in calls[0])
+    print(f"busy {label}: card busy {busy:.3f} ms of {walls[0] * 1e3:.3f} ms wall "
+          f"({100 * busy / (walls[0] * 1e3):.2f}%), {len(calls[0])} device events")
+
+
+def sortd_run(cfg: SortdConfig, reqs: list, label: str) -> dict:
+    """One closed-loop run of ``reqs`` through ``Sortd`` over a fresh
+    ``SortEngine()``, warmed on a throwaway service first (as the
+    reference benchmark warms), then the same run under the profiler for
+    the card's busy share.  Returns the measured run's launches."""
+    eng = SortEngine()
+    with Sortd(eng, cfg) as warm:
+        for x in reqs[:20]:
+            warm.sort(x)
+    reset_launches()
+    with Sortd(eng, cfg) as sd:
+        wall, outs = drive_closed_loop(sd.submit, reqs, clients=SERVE_CLIENTS)
+        m = sd.metrics()
+    counts = launch_counts()
+    exact(reqs, outs, f"Sortd {label}")
+    if m["completed"] != len(reqs) or m["failed"]:
+        fail(f"Sortd {label}: {m['completed']} completed, {m['failed']} failed of {len(reqs)}")
+    print(f"sortd {label}: {serving_stats(m, wall, len(reqs))}, wall {wall * 1e3:.1f} ms")
+    print(f"  launches: {counts}")
+    with Sortd(eng, cfg) as sd:
+        busy_share(f"sortd {label}", lambda: exact(reqs, drive_closed_loop(sd.submit, reqs, clients=SERVE_CLIENTS)[1], label))
+    return counts
+
+
+def merge_ticks() -> dict:
+    """16 ``submit_merge`` ticks of 2,048 keys into a buffer that starts
+    at 16,384 keys and grows by each tick."""
+    rng = np.random.default_rng(70)
+    buf = np.sort(rng.integers(0, 1 << 30, 16384).astype(np.int32))
+    reset_launches()
+    walls = []
+    with Sortd(SortEngine()) as sd:
+        for _ in range(16):
+            new = rng.integers(0, 1 << 30, 2048).astype(np.int32)
+            t0 = time.perf_counter()
+            out = sd.submit_merge(buf, new).result(timeout=120)
+            walls.append(time.perf_counter() - t0)
+            if not np.array_equal(out, np.sort(np.concatenate([buf, new]))):
+                fail("Sortd.submit_merge differs from np.sort of the union")
+            buf = out
+        m = sd.metrics()
+    counts = launch_counts()
+    print(f"sortd merge: 16 ticks of 2048 into 16384..{buf.size - 2048} keys, median wall "
+          f"{statistics.median(walls) * 1e3:.3f} ms, buckets {sorted(m['buckets'])}; launches {counts}")
+    return counts
+
+
+def fault_ladder() -> dict:
+    """The five scenarios of the reference fault benchmark at d_h = 1,
+    then healed, each serving ``FAULT_REQUESTS`` requests of the mix."""
+    topo = OHHCTopology(1, "full")
+    scenarios = [
+        FaultScenario.optical_link_down(1),
+        FaultScenario.random_links(topo, 2, seed=3),
+        FaultScenario.random_links(topo, 4, seed=3),
+        FaultScenario.group_uplinks_down(topo, 1),
+        FaultScenario.worker_down(1),
+        None,
+    ]
+    impossible = {"uplinks_g1_down", "worker1_down"}
+    eng = SortEngine(topo)
+    plans = record_flushes(eng)
+    total = collections.Counter()
+    cfg = SortdConfig(max_batch=64, max_wait_s=0.005, max_bucket=1 << 12)
+    with Sortd(eng, cfg) as sd:
+        for i, sc in enumerate(scenarios):
+            name = sc.name if sc is not None else "healed"
+            reqs = serving_mix(FAULT_REQUESTS, "int32", seed=40 + i)
+            sd.set_fault_scenario(sc)
+            m0 = sd.metrics()
+            plans.clear()
+            reset_launches()
+            wall, outs = drive_closed_loop(sd.submit, reqs, clients=SERVE_CLIENTS)
+            counts = launch_counts()
+            m1 = sd.metrics()
+            exact(reqs, outs, f"Sortd under {name}")
+            flushes = sum(m1["flushes"].values()) - sum(m0["flushes"].values())
+            degraded = m1["degraded_flushes"] - m0["degraded_flushes"]
+            if len(plans) != flushes or not flushes:
+                fail(f"{name}: {len(plans)} flush plans recorded for {flushes} flushes")
+            slowdowns = sorted({p.fault_slowdown for p, _, _ in plans if p.fault_slowdown is not None})
+            if sc is None:
+                if degraded or any(p.fault is not None for p, _, _ in plans) or not counts["batched_row_sort"]:
+                    fail("the healed service still served degraded flushes, or launched no row kernel")
+            elif name in impossible:
+                if any(p.path != "host" or p.fault != name for p, _, _ in plans) or degraded != flushes:
+                    fail(f"{name}: a flush left the host fallback")
+                if sum(counts.values()):
+                    fail(f"{name}: the host fallback launched kernels {counts}")
+            else:
+                if degraded != flushes or any(p.fault != name or p.fault_slowdown is None for p, _, _ in plans):
+                    fail(f"{name}: a flush plan lacks its fault or slowdown")
+                if not counts["batched_row_sort"]:
+                    fail(f"{name}: the degraded service launched no row kernel")
+                cpu = SortEngine(topo, device="cpu", fault_scenario=sc)
+                for p, n, dtype in plans:
+                    if cpu.plan(np.zeros(n, dtype)).fault_slowdown != p.fault_slowdown:
+                        fail(f"{name}: the card's flush slowdown {p.fault_slowdown} differs from the CPU's")
+            print(f"fault {name}: {flushes} flushes ({degraded} degraded), paths "
+                  f"{sorted({p.path for p, _, _ in plans})}, slowdowns {slowdowns}, "
+                  f"{len(reqs) / wall:.1f} requests/s, wall {wall * 1e3:.1f} ms; launches {counts}")
+            total.update(counts)
+    return dict(total)
+
+
+def fleet_path() -> dict:
+    """``SortdFleet`` of four workers on the one card, each with its own
+    ``SortEngine()``: 800 requests of ``loadgen.request_mix`` from 8
+    clients after 60 warm ones, healthy and then with the busiest worker
+    killed after 60 + 800 // 3 admissions."""
+    warm = request_mix(FLEET_WARM, dtype="int32", seed=3)
+    reqs = request_mix(FLEET_REQUESTS, dtype="int32", seed=11)
+    # the kernels were built in phase 1; warm the row backends' probes on a
+    # throwaway service before any worker's heartbeat starts
+    with Sortd(SortEngine()) as w:
+        for x in warm[:20]:
+            w.sort(x)
+    reset_launches()
+    reports = {}
+    for label, chaos in (
+        ("healthy", None),
+        ("chaos", ChaosConfig(name="kill-busiest-midload", kill_worker_after=FLEET_WARM + FLEET_REQUESTS // 3)),
+    ):
+        with SortdFleet(FleetConfig(workers=4), chaos=chaos) as fleet:
+            drive_closed_loop(fleet.submit, warm, clients=SERVE_CLIENTS)
+            wall, outs = drive_closed_loop(fleet.submit, reqs, clients=SERVE_CLIENTS)
+            rep = fleet.report()
+        exact(reqs, outs, f"SortdFleet {label}")
+        f = rep["fleet"]
+        methods = collections.Counter()
+        for w in rep["workers"].values():
+            for b in w["sortd"]["buckets"].values():
+                methods.update(b["methods"])
+        print(f"fleet {label}: flush methods {dict(methods)}")
+        print(f"fleet {label}: {FLEET_REQUESTS / wall:.1f} requests/s, p50 {f['latency_ms']['p50']:.3f} ms, "
+              f"p99 {f['latency_ms']['p99']:.3f} ms, steals {f['steals']}, failovers {f['failovers']}, "
+              f"readmitted {f['readmitted']}, live {f['live_workers']}, wall {wall * 1e3:.1f} ms")
+        reports[label] = rep
+    if reports["healthy"]["fleet"]["failovers"]:
+        fail("the healthy fleet failed a worker over")
+    chaos = reports["chaos"]
+    if chaos["fleet"]["failovers"] < 1 or chaos["chaos"]["killed_worker"] is None:
+        fail("the chaos run killed no worker or failed none over")
+    print(f"  chaos killed worker {chaos['chaos']['killed_worker']} ({chaos['chaos'].get('fault_scenario')})")
+    counts = launch_counts()
+    print(f"  launches over both fleet runs: {counts}")
+    return counts
+
+
+def serving_path() -> dict:
+    total = collections.Counter()
+    bench_cfg = SortdConfig(max_batch=64, max_wait_s=0.005, max_bucket=1 << 12)
+    for dtype in ("int32", "float32"):
+        total.update(sortd_run(bench_cfg, serving_mix(SERVE_REQUESTS, dtype, 11), f"{dtype} bench config"))
+        total.update(sortd_run(SortdConfig(), serving_mix(SERVE_REQUESTS, dtype, 12, tail=0.15),
+                               f"{dtype} default config, 15% of 8193-32768 keys"))
+    total.update(merge_ticks())
+    for name in PHASE7_KERNELS:
+        if not total[name]:
+            fail(f"{name} never launched on the Sortd path")
+    total.update(fault_ladder())
+    total.update(fleet_path())
+    return dict(total)
+
+
 def main() -> None:
     preflight()
     rows = kernel_checks()
@@ -1094,15 +1362,22 @@ def main() -> None:
     work_counts = launch_counts()
     print("launches on top_k and merge_sorted:", work_counts)
 
+    t0 = time.perf_counter()
+    serve_counts = {name: 0 for name in KERNELS}
+    serve_counts.update(serving_path())
+    print(f"launches on the serving path (Sortd, fault ladder, fleet), {time.perf_counter() - t0:.1f} s:", serve_counts)
+
     launches = {
         **sort_counts,
         "batched_row_sort": seg_counts["batched_row_sort"],
         "sort_pairs_tile_tagged": pair_counts["sort_pairs_tile_tagged"],
     }
+    for name in launches:
+        launches[name] += serve_counts[name]
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
-        launches[name] = sum(c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts))
+        launches[name] = sum(c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts))
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "
                  "the kernels line must count that path's launches")

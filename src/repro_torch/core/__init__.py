@@ -3,8 +3,10 @@
 Modules mirror ``repro.core``: topology (OHHC graph) and schedule
 (accumulation schedule) are copies; workloads holds the copied host
 arithmetic of the top-k, pairs and merge operations; pytree maps over
-``sort_pairs`` payloads; partition (Array Division Procedure), ohhc_sort (simulated and host
-sorts) and engine (the autotuned dispatch layer) run on torch tensors.
+``sort_pairs`` payloads; partition (Array Division Procedure), ohhc_sort
+(simulated and host sorts; the Quick Sort counters are numpy copies) and
+engine (the autotuned dispatch layer, with the fault ladder over
+``repro_torch.net``) run on torch tensors.
 """
 
 from repro_torch.core.topology import OHHCTopology, table_1_1, HHC_SIZE
@@ -23,9 +25,13 @@ from repro_torch.core.partition import (
 )
 from repro_torch.core.ohhc_sort import (
     LinkModel,
+    QuickSortCounters,
+    bitonic_counters,
     model_comm_time_s,
     ohhc_sort_host,
     ohhc_sort_sim,
+    parallel_quicksort_counters,
+    quicksort_counters,
 )
 from repro_torch.core.workloads import (
     WORKLOAD_OPS,
@@ -83,6 +89,10 @@ __all__ = [
     "model_comm_time_s",
     "ohhc_sort_host",
     "ohhc_sort_sim",
+    "QuickSortCounters",
+    "quicksort_counters",
+    "parallel_quicksort_counters",
+    "bitonic_counters",
     "check_sorted",
     "host_bucket_ids",
     "WORKLOAD_OPS",

@@ -39,8 +39,17 @@ integer keys run on the kernels there too; keys of a dtype no kernel
 takes (float64, float16) and argsorts past ``ops.MAX_TILE`` take the
 host stable argsort, a planned route named in ``last_report``.
 
-Not in this slice: the dist path over a mesh and fault scenarios (they
-raise ``NotImplementedError``).
+Fault scenarios (``fault_scenario=``, ``set_fault_scenario``) run the
+reference's fallback ladder over ``repro_torch.net``: a healthy topology
+leaves the plan alone; a degraded one whose gather is still possible
+keeps the path and prices the gather over the rebuilt schedule
+(``fault``, ``fault_slowdown``); one whose gather is impossible sends
+``sort`` onto the host path and ``sort_segments`` onto an exact
+per-segment host sort, so no kernel runs.  The classification and the
+prices are pure Python, cached per scenario name and size bucket.
+
+Not in this slice: the dist path over a mesh (it raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -769,9 +778,6 @@ _DIST_TODO = (
     "the dist path over a mesh is not ported yet "
     "(ROADMAP.md, Queue 1, 'Dist path')"
 )
-_FAULT_TODO = (
-    "fault scenarios are not ported yet (ROADMAP.md, Queue 1, 'Fault ladder')"
-)
 
 
 # --------------------------------------------------------------------------
@@ -790,10 +796,12 @@ class SortEngine:
     local_sort:      per-bucket sorter for the sim path: sorts the last axis
                      of the (rows·P, capacity) bucket buffer (default
                      ``ops.make_local_sort()``, the hand-written kernels).
+    fault_scenario:  a ``repro_torch.net.faults.FaultScenario`` to serve
+                     under (``None``: healthy); see ``set_fault_scenario``.
     device:          ``None`` or ``"cuda"`` runs on the card and raises when
                      there is none; ``"cpu"`` runs the kernels' plain
                      versions on the CPU.
-    mesh, fault_scenario: not ported yet; anything but ``None`` raises
+    mesh:            not ported yet; anything but ``None`` raises
                      ``NotImplementedError``.
     """
 
@@ -811,27 +819,148 @@ class SortEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(_DIST_TODO)
-        if fault_scenario is not None:
-            raise NotImplementedError(_FAULT_TODO)
         self.device = _resolve_device(device)
         self.topo = topo if topo is not None else OHHCTopology(1, "full")
         self.host_threshold = int(host_threshold)
         self.sample_size = int(sample_size)
         self.margin = float(margin)
         self.local_sort = local_sort if local_sort is not None else ops.make_local_sort()
+        self.fault_scenario = fault_scenario
         self._fn_cache: dict[tuple, Callable] = {}
+        self._comm_sim_cache: dict[tuple, float] = {}
+        # per-scenario-name degraded classification (rebuilt rounds or the
+        # GatherImpossible verdict) — warm like the caches it sits next to
+        self._fault_info: dict[str, dict] = {}
         self.trace_count = 0  # executor builds (cache misses)
         self.last_report: dict | None = None
 
+    # ---------------------------------------------------------------- faults
     def set_fault_scenario(self, scenario) -> None:
-        """Only ``None`` (healthy) is supported in this slice."""
-        if scenario is not None:
-            raise NotImplementedError(_FAULT_TODO)
+        """Switch the engine onto (or off, with ``None``) a degraded
+        topology.  Classification is cached per scenario *name*, the
+        executor cache is untouched (the sorted output is
+        fault-independent), and only plan pricing/pathing changes — so
+        flapping scenarios never rebuild an executor (DESIGN.md §11)."""
+        self.fault_scenario = scenario
+
+    def _fault_state(self) -> "dict | None":
+        """The active scenario classified: ``None`` when healthy, else a
+        dict with ``impossible`` (bool), the scenario, and either the
+        rebuilt degraded rounds + faulted router (possible) or the
+        :class:`~repro_torch.net.faults.GatherImpossible` detail + offending
+        node set (impossible)."""
+        sc = self.fault_scenario
+        if sc is None or not getattr(sc, "is_degraded", False):
+            return None
+        info = self._fault_info.get(sc.name)
+        if info is None:
+            from repro_torch.net.faults import GatherImpossible, degraded_gather_rounds
+
+            try:
+                rounds = degraded_gather_rounds(self.topo, sc)
+            except GatherImpossible as e:
+                info = {
+                    "impossible": True,
+                    "scenario": sc,
+                    "detail": str(e),
+                    "nodes": tuple(sorted(e.nodes)),
+                }
+            else:
+                info = {
+                    "impossible": False,
+                    "scenario": sc,
+                    "rounds": rounds,
+                    "router": sc.router(self.topo),
+                }
+            self._fault_info[sc.name] = info
+        return info
 
     def _apply_fault(self, plan: SortPlan, *, n: int, itemsize: int) -> SortPlan:
-        """The plan under the active fault scenario: with none (the only
-        state this slice supports) the plan itself."""
+        """The fallback ladder (DESIGN.md §11): healthy → plan unchanged;
+        degraded-but-possible → same path, gather re-priced over the
+        rebuilt schedule (predicted slowdown lands in the reason and, for
+        dist, in ``comm_sim_s``); impossible → the plan is rewritten onto
+        the healthy host path, which needs no interconnect gather."""
+        info = self._fault_state()
+        if info is None:
+            return plan
+        name = info["scenario"].name
+        if info["impossible"]:
+            if plan.path == "host":
+                return dataclasses.replace(
+                    plan,
+                    fault=name,
+                    reason=f"{plan.reason}; fault={name}: degraded gather "
+                    "impossible, host path unaffected",
+                )
+            return SortPlan(
+                "host", "paper", None, None,
+                f"fault={name}: degraded gather impossible "
+                f"({info['detail']}); falling back to the healthy host path",
+                fault=name,
+            )
+        healthy = self._comm_price(n, itemsize, None)
+        degraded = self._comm_price(n, itemsize, info)
+        ratio = degraded / healthy if healthy > 0 else 1.0
+        plan = dataclasses.replace(
+            plan,
+            fault=name,
+            fault_slowdown=ratio,
+            reason=f"{plan.reason}; fault={name}: predicted "
+            f"×{ratio:.2f} gather slowdown",
+        )
+        if plan.path == "dist":
+            plan = dataclasses.replace(plan, comm_sim_s=degraded)
         return plan
+
+    def _comm_price(self, n: int, itemsize: int, fault_info: "dict | None") -> float:
+        """Barrier-mode gather time for one pow2 bucket, healthy
+        (``fault_info=None``) or over a rebuilt degraded schedule — one
+        cache, keyed by (bucket, itemsize, scenario name)."""
+        from repro_torch.net.links import LinkModel
+        from repro_torch.net.sim import simulate_gather, simulate_schedule
+
+        bucket = ops.bucketed_length(max(2, n))
+        name = None if fault_info is None else fault_info["scenario"].name
+        key = ("netsim", bucket, itemsize, name)
+        t = self._comm_sim_cache.get(key)
+        if t is None:
+            chunk = -(-bucket // self.topo.total_procs)
+            if fault_info is None:
+                t = simulate_gather(
+                    self.topo,
+                    link_model=LinkModel(),
+                    chunk_sizes=chunk,
+                    itemsize=itemsize,
+                    barrier=True,
+                ).total_time_s
+            else:
+                t = simulate_schedule(
+                    fault_info["rounds"],
+                    self.topo,
+                    link_model=LinkModel(),
+                    router=fault_info["router"],
+                    chunk_sizes=chunk,
+                    itemsize=itemsize,
+                    barrier=True,
+                ).total_time_s
+            self._comm_sim_cache[key] = t
+        return t
+
+    def comm_cost_estimate(self, n: int, itemsize: int = 4) -> float:
+        """Simulated one-way gather time (s) for an ``n``-element request.
+
+        Runs the ``repro_torch.net`` event-driven simulator (DESIGN.md §6)
+        over this engine's topology with even ``n/P`` chunks.  Cached per
+        pow2 size bucket.  Under an active (and possible) fault scenario
+        the price is the *degraded* schedule's (DESIGN.md §11); an
+        impossible scenario prices healthy — the fallback ladder never runs
+        the gather there.
+        """
+        info = self._fault_state()
+        if info is not None and info["impossible"]:
+            info = None
+        return self._comm_price(n, itemsize, info)
 
     # -------------------------------------------------------------- planning
     def stats(self, x) -> InputStats:
@@ -840,11 +969,14 @@ class SortEngine:
 
     def plan(self, x, stats: InputStats | None = None) -> SortPlan:
         stats = stats if stats is not None else self.stats(x)
-        return choose_plan(
+        plan = choose_plan(
             stats,
             self.topo,
             host_threshold=self.host_threshold,
             margin=self.margin,
+        )
+        return self._apply_fault(
+            plan, n=stats.n, itemsize=np.dtype(stats.dtype).itemsize
         )
 
     # -------------------------------------------------------- executor cache
@@ -906,7 +1038,12 @@ class SortEngine:
         stats = None
         if plan is None:
             stats = self.stats(x_np)
-            plan = self.plan(x_np, stats)
+            plan = self.plan(x_np, stats)  # fault ladder applied inside
+        else:
+            # Forced plans go through the same ladder: an impossible
+            # scenario rewrites even an explicit sim plan onto the healthy
+            # host path (DESIGN.md §11).
+            plan = self._apply_fault(plan, n=n, itemsize=x_np.dtype.itemsize)
         if plan.path == "host":
             r = ohhc_sort_host(x_np, self.topo, method=plan.method)
             self.last_report = {
@@ -1022,6 +1159,31 @@ class SortEngine:
                 "n": total, "batch": B, "overflow_retries": 0,
             }
             return outs
+        fault_info = self._fault_state()
+        if fault_info is not None and fault_info["impossible"]:
+            # An impossible scenario has no degraded gather to run, so the
+            # batch is served exactly on the host, and no kernel launches
+            # (DESIGN.md §11).
+            if return_padded:
+                raise ValueError(
+                    "return_padded needs the device path; fault scenario "
+                    f"{fault_info['scenario'].name!r} makes the degraded "
+                    "gather impossible and forces the host fallback"
+                )
+            outs = [
+                np.sort(seg)
+                for seg in np.split(keys, np.cumsum(lens)[:-1])
+            ] if B else []
+            self.last_report = {
+                "plan": SortPlan(
+                    "host", "paper", None, None,
+                    f"fault={fault_info['scenario'].name}: degraded gather "
+                    f"impossible ({fault_info['detail']}); exact host fallback",
+                    fault=fault_info["scenario"].name,
+                ),
+                "n": total, "batch": B, "overflow_retries": 0,
+            }
+            return outs
         padded_n = ops.bucketed_length(max(max_n, 1))
         if B == 0 or max_n <= 1:
             # Nothing to sort row-wise; keep the trivial case off the device.
@@ -1062,6 +1224,9 @@ class SortEngine:
                 plan = choose_batch_plan(
                     stats, self.topo.total_procs, padded_n, margin=self.margin
                 )
+        # Degraded-but-possible scenario: same path, plan annotated with
+        # the predicted gather slowdown (impossible was served above).
+        plan = self._apply_fault(plan, n=max(total, 1), itemsize=keys.dtype.itemsize)
         if plan.path != "sim":
             raise ValueError(f"sort_segments only runs the sim path, got {plan.path!r}")
         method = plan.method

@@ -12,10 +12,11 @@
 * ``ref``              — plain-torch oracles (library sorts)
 
 Sources are in ``csrc/`` and are built by ``_build`` on first use.  Every
-kernel wrapper carries a ``launches`` count of the kernels it launched.
+kernel wrapper carries a ``launches`` count of the kernels it launched,
+kept under one lock (``_launches``) so that threads lose no count.
 """
 
-from repro_torch.kernels import batched, bitonic, ops, partition_kernel, ref
+from repro_torch.kernels import _launches, batched, bitonic, ops, partition_kernel, ref
 
 # Name → wrapper whose ``launches`` counts that kernel's launches.
 KERNELS = {
@@ -30,12 +31,14 @@ KERNELS = {
 
 
 def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with _launches.LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    with _launches.LOCK:
+        return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 __all__ = [

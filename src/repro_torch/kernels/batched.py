@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import dtypes
-from repro_torch.kernels import _build, bitonic
+from repro_torch.kernels import _build, _launches, bitonic
 
 __all__ = [
     "batched_row_sort",
@@ -118,7 +118,7 @@ def batched_row_sort(
             bitonic.stream_handle(),
         )
         _build.check(lib, code, "batched_row_sort")
-        batched_row_sort.launches += 1
+        _launches.count(batched_row_sort)
     return out
 
 
@@ -199,7 +199,7 @@ def batched_row_sort_pairs(keys: torch.Tensor, vals: torch.Tensor, seg_lens: tor
             bitonic.stream_handle(),
         )
         _build.check(lib, code, "batched_row_sort_pairs")
-        batched_row_sort_pairs.launches += 1
+        _launches.count(batched_row_sort_pairs)
     return out_k, out_v.view(vals.dtype)
 
 

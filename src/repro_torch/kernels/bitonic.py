@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 
 LANES = 128
 
@@ -128,7 +128,7 @@ def sort_tile(x: torch.Tensor) -> torch.Tensor:
             DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), rows, log_n, stream_handle()
         )
         _build.check(lib, code, "sort_tile")
-        sort_tile.launches += 1
+        _launches.count(sort_tile)
     return out
 
 
@@ -179,7 +179,7 @@ def merge_tile_pairs(buf: torch.Tensor, first: int = 0) -> torch.Tensor:
             DTYPE_CODES[buf.dtype], base, rows, tiles * m, k, check_tile(m) + 1, stream_handle()
         )
         _build.check(lib, code, "merge_tile_pairs")
-        merge_tile_pairs.launches += 1
+        _launches.count(merge_tile_pairs)
     return buf
 
 
@@ -306,7 +306,7 @@ def _launch_pairs(wrapper, keys, tags, vals):
             stream_handle(),
         )
         _build.check(lib, code, what)
-        wrapper.launches += 1
+        _launches.count(wrapper)
     return out_k, out_v.view(vals.dtype)
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, bitonic
+from repro_torch.kernels import _build, _launches, bitonic
 
 # Bucket count the kernel takes: its shared memory holds sixteen warps'
 # 16-bit running counts and the tile's counts, 144 KiB at 4,096.
@@ -102,7 +102,7 @@ def _launch(ids: torch.Tensor, num_buckets: int):
         bitonic.stream_handle(),
     )
     _build.check(lib, code, "bucket_count_rank")
-    bucket_count_rank.launches += 1
+    _launches.count(bucket_count_rank)
     return counts, ranks
 
 

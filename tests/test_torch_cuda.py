@@ -410,3 +410,35 @@ def test_cuda_bucket_count_rank_past_one_launch_is_one_stable_pass(cuda_device):
     del order, order_vals
     want[~valid] = 0
     assert torch.equal(ranks, want)
+
+
+@pytest.mark.cuda
+def test_cuda_sortd_serves_exactly_through_the_kernels(cuda_device, monkeypatch):
+    """``Sortd`` over ``SortEngine()`` on the card: short rows through the
+    row kernel K4, a flush of rows past 8,192 keys through K1 and K2, and
+    an impossible fault scenario through the host with no launch."""
+    # the suite pins the row backend to the library sort (tests/conftest.py);
+    # unpinned, the engine races only the row kernel's two stages
+    monkeypatch.delenv("REPRO_ROW_BACKEND", raising=False)
+    from repro_torch.core import SortEngine
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.net.faults import FaultScenario
+    from repro_torch.serve import Sortd, SortdConfig
+
+    rng = np.random.default_rng(71)
+    short = [rng.integers(0, 1 << 30, int(n)).astype(np.int32) for n in rng.integers(64, 4096, 24)]
+    long = [rng.integers(0, 1 << 30, int(n)).astype(np.int32) for n in rng.integers(8193, 16384, 4)]
+    eng = SortEngine()
+    reset_launches()
+    with Sortd(eng, SortdConfig(max_batch=8, max_wait_s=0.005)) as sd:
+        futs = [sd.submit(x) for x in short + long]
+        for x, f in zip(short + long, futs):
+            assert np.array_equal(f.result(timeout=120), np.sort(x))
+        counts = launch_counts()
+        assert counts["batched_row_sort"] > 0
+        assert counts["bucket_count_rank"] > 0 and counts["sort_tile"] > 0
+        sd.set_fault_scenario(FaultScenario.worker_down(1))
+        reset_launches()
+        for x in short[:8] + long[:1]:
+            assert np.array_equal(sd.sort(x), np.sort(x))
+        assert sum(launch_counts().values()) == 0

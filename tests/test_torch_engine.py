@@ -18,6 +18,7 @@ from repro.core import SortEngine as JaxSortEngine
 from repro.kernels import ops as jops
 from repro_torch.core import SortEngine, SortPlan, engine
 from repro_torch.data import ALL_DISTRIBUTIONS, make_array
+from repro_torch.net.faults import FaultScenario
 
 DTYPES = (np.int8, np.int16, np.int32, np.int64, np.uint32, np.float32)
 
@@ -226,12 +227,15 @@ def test_sort_many_and_tensor_input(port, monkeypatch):
 
 
 def test_dist_and_faults_are_not_in_this_slice(port):
+    """The dist path is still to be ported; the fault ladder now is (held
+    against the reference scenario by scenario in test_torch_faults.py)."""
     with pytest.raises(NotImplementedError, match="Dist path"):
         SortEngine(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Fault ladder"):
-        SortEngine(device="cpu", fault_scenario=object())
-    with pytest.raises(NotImplementedError, match="Fault ladder"):
-        port.set_fault_scenario(object())
+    sc = FaultScenario.optical_link_down(1)
+    assert SortEngine(device="cpu", fault_scenario=sc).fault_scenario is sc
+    port.set_fault_scenario(sc)
+    assert port.plan(make_array("random", 3000, seed=29)).fault == sc.name
     port.set_fault_scenario(None)
+    assert port.plan(make_array("random", 3000, seed=29)).fault is None
     with pytest.raises(NotImplementedError):
         port.sort(np.arange(10), plan=SortPlan("dist", "paper", None, None, "forced"))

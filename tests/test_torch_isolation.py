@@ -28,7 +28,8 @@ def _env():
 
 def test_importing_the_port_loads_no_jax_or_repro():
     code = (
-        "import sys, repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.data\n"
+        "import sys, repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.data, repro_torch.net\n"
+        "import repro_torch.serve, repro_torch.serve.fleet.loadgen\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
