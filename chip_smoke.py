@@ -54,12 +54,24 @@ no result line):
    two impossible scenarios launch no kernel; (c) ``SortdFleet`` of four
    workers, 800 requests of ``loadgen.request_mix``, healthy and with the
    busiest worker killed mid-load; every result against ``np.sort``;
-8. a ``kernels`` JSON line with each kernel's launches on its path
+8. conformance on the card (``repro_torch.verify``): (a) the smoke run as
+   ``python -m repro_torch.verify --smoke`` runs it (252 sort, 66
+   segment, 30 fault and 90 op cells, the cross-check, the property
+   battery, the drift gate against ``tests/baselines/verify_smoke_torch.json``),
+   then the fault cells of the two impossible classes again, which must
+   launch nothing; (b) the port's ``--full`` grid (1,560 sort cells, the
+   130 int64 sim cells among them) with the cross-check; (c) paper scale:
+   int32 {random, dupes, sorted, local} at 4,194,304 and 15,728,640 keys
+   through sim/paper, sim/sampled and host/paper at d_h = 1, random at
+   4,194,304 through sim/paper at d_h = 2 and 3, cross-checked, and the
+   metamorphic battery and fault replay on the 4,194,304-key random input;
+   fails unless K1-K5 launched and K6, K7 did not;
+9. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
-   phase 5 for the tagged pair kernel, each plus its launches in phase 7;
-   the untagged pair kernel and the pair row kernel have no caller on any
-   path and are checked in phase 2 only); the launches of single requests
-   are printed on their own lines.
+   phase 5 for the tagged pair kernel, each plus its launches in phases 7
+   and 8; the untagged pair kernel and the pair row kernel have no caller
+   on any path and are checked in phase 2 only); the launches of single
+   requests are printed on their own lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of the JAX package ``repro``.
@@ -75,6 +87,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -103,6 +116,9 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.net.faults import FaultScenario  # noqa: E402
 from repro_torch.serve import ChaosConfig, FleetConfig, Sortd, SortdConfig, SortdFleet  # noqa: E402
 from repro_torch.serve.fleet.loadgen import drive_closed_loop, request_mix  # noqa: E402
+from repro_torch.verify import cross_check, differential, grid, metamorphic_checks  # noqa: E402
+from repro_torch.verify.properties import fault_replay_for_engine_run  # noqa: E402
+from repro_torch.verify import __main__ as verify_cli  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
@@ -1327,6 +1343,114 @@ def serving_path() -> dict:
     return dict(total)
 
 
+# ----------------------------------------------------------------- phase 8
+PHASE8_KERNELS = ("bucket_count_rank", "sort_tile", "merge_tiles", "batched_row_sort", "sort_pairs_tile_tagged")
+# The paper's sizes (PERF.md section 4): 2^22 keys and 15,728,640 (60 MB
+# of int32, its largest array).
+PAPER_GRID_SIZES = (1 << 22, PAPER_MAX_KEYS)
+
+
+def verify_cli_run(mode: str, *extra: str) -> tuple[dict, dict]:
+    """``python -m repro_torch.verify --<mode>`` on the card, in process;
+    its JSON report and its launches.  Fails unless it
+    exits 0: no failing cell, cross-check mismatch, failing property or
+    drift."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "report.json"
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = verify_cli.main([f"--{mode}", "--device", "cuda", "-q", "--report", str(path), *extra])
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        report = json.loads(path.read_text())
+    if rc != 0:
+        fail(f"python -m repro_torch.verify --{mode} on the card exited {rc}")
+    print(f"verify --{mode}: {report['scenario_count']} cells, {len(report['property_checks'])} property checks, "
+          f"{secs:.1f} s; launches {counts}")
+    return report, counts
+
+
+def paper_scale_grid() -> dict:
+    """The paper's sizes through ``run_grid``: every row oracle-checked,
+    the paths of one input cross-checked, with each row's seconds,
+    capacity, retries and dense ``(P, capacity)`` buffer."""
+    cells = [
+        grid.Scenario(path, method, "int32", dist, n, 1)
+        for n in PAPER_GRID_SIZES
+        for dist in ("random", "dupes", "sorted", "local")
+        for path, method in (("sim", "paper"), ("sim", "sampled"), ("host", "paper"))
+    ]
+    cells += [grid.Scenario("sim", "paper", "int32", "random", PAPER_GRID_SIZES[0], d_h) for d_h in (2, 3)]
+    largest = (0, None)
+    merges_at_largest = 0
+
+    def progress(r):
+        nonlocal last, largest, merges_at_largest
+        now = launch_counts()
+        got = {k: now[k] - last[k] for k in now if now[k] != last[k]}
+        last = now
+        if r.scenario.n == PAPER_GRID_SIZES[-1]:
+            merges_at_largest += got.get("merge_tiles", 0)
+        P = OHHCTopology(r.scenario.d_h, r.scenario.variant).total_procs
+        dense = P * r.capacity * 4 if r.path == "sim" and r.capacity else 0
+        largest = max(largest, (dense, r.scenario_id))
+        print(f"paper {r.scenario_id}: {r.status}{' ' + r.detail if r.detail else ''}, {r.elapsed_s:.3f} s, path={r.path} "
+              f"capacity={r.capacity} retries={r.retries} dense buffer {dense / 2**20:.1f} MiB; launches {got}")
+
+    reset_launches()
+    last = launch_counts()
+    t0 = time.perf_counter()
+    results = differential.run_grid(cells, progress=progress, engines=differential.EngineCache())
+    fails = [f"{r.scenario_id}: {r.detail}" for r in results if r.status != "pass"]
+    mismatches = cross_check(results)
+    del results
+    eng = SortEngine(host_threshold=1 << 25)  # 4,194,304 keys stay on the kernels
+    x = make_array("random", PAPER_GRID_SIZES[0], seed=7)
+    props = metamorphic_checks(eng, x, subject=f"int32/random/n{x.size}") + fault_replay_for_engine_run(eng, x)
+    if eng.last_report["plan"].path != "sim":
+        fail(f"the paper-scale property run left the kernels: {eng.last_report['plan']}")
+    bad = [f"{p.check}[{p.subject}]: {p.detail}" for p in props if p.status != "pass"]
+    counts = launch_counts()
+    print(f"paper scale: {len(cells)} rows, {len(mismatches)} cross-check mismatches, "
+          f"{len(props) - len(bad)}/{len(props)} property checks pass, {time.perf_counter() - t0:.1f} s; "
+          f"largest dense buffer {largest[0] / 2**30:.3f} GiB ({largest[1]}); launches {counts}")
+    if fails or mismatches or bad:
+        fail(f"paper scale: failing rows {fails}, mismatches {mismatches}, properties {bad}")
+    if not merges_at_largest:
+        fail(f"no sim row of {PAPER_GRID_SIZES[-1]} keys reached the tile merge")
+    return counts
+
+
+def conformance() -> dict:
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    report, counts = verify_cli_run("smoke")
+    if report["scenario_count"] != 438 or report["drift"] is None or not report["drift"]["clean"]:
+        fail(f"the smoke run held {report['scenario_count']} cells or was not gated clean: {report['drift']}")
+    total.update(counts)
+    # the impossible fault classes take the host fallback and launch nothing
+    cells = [c for c in grid.fault_grid() if c.fault in grid.FAULT_IMPOSSIBLE]
+    reset_launches()
+    results = differential.run_fault_grid(cells, engines=differential.EngineCache())
+    if any(r.status != "pass" or r.path != "host" for r in results) or sum(launch_counts().values()):
+        fail(f"an impossible fault cell failed, left the host or launched a kernel: {launch_counts()}")
+    print(f"verify: {len(cells)} fault cells of {grid.FAULT_IMPOSSIBLE} on the host fallback, no launch")
+    report, counts = verify_cli_run("full", "--skip-properties")
+    if report["scenario_count"] != 1560 + 66 + 30 + 90:
+        fail(f"the full run held {report['scenario_count']} cells")
+    wide = [sid for sid, rec in report["baseline"]["scenarios"].items()
+            if sid.startswith("sim/") and "/int64/" in sid and rec["path"] == "sim"]
+    if len(wide) != 130:
+        fail(f"{len(wide)} int64 sim cells ran on the sim path, not 130")
+    total.update(counts)
+    total.update(paper_scale_grid())
+    for name in PHASE8_KERNELS:
+        if not total[name]:
+            fail(f"{name} never launched in phase 8")
+    print(f"phase 8 (conformance): {time.perf_counter() - t0:.1f} s; launches {dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     preflight()
     rows = kernel_checks()
@@ -1367,17 +1491,21 @@ def main() -> None:
     serve_counts.update(serving_path())
     print(f"launches on the serving path (Sortd, fault ladder, fleet), {time.perf_counter() - t0:.1f} s:", serve_counts)
 
+    verify_counts = conformance()
+
     launches = {
         **sort_counts,
         "batched_row_sort": seg_counts["batched_row_sort"],
         "sort_pairs_tile_tagged": pair_counts["sort_pairs_tile_tagged"],
     }
     for name in launches:
-        launches[name] += serve_counts[name]
+        launches[name] += serve_counts[name] + verify_counts[name]
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
-        launches[name] = sum(c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts))
+        launches[name] = sum(
+            c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts)
+        )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "
                  "the kernels line must count that path's launches")

@@ -442,3 +442,27 @@ def test_cuda_sortd_serves_exactly_through_the_kernels(cuda_device, monkeypatch)
         for x in short[:8] + long[:1]:
             assert np.array_equal(sd.sort(x), np.sort(x))
         assert sum(launch_counts().values()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_verify_tier1_grid_has_no_drift(cuda_device):
+    """The tier-1 conformance cells (sort, segment and op) on the card:
+    every cell exact, the paths agreeing, and no drift against the
+    committed port baseline recorded on the CPU."""
+    from pathlib import Path
+
+    from repro_torch.verify import baseline, differential, grid
+
+    engines = differential.EngineCache()
+    results = differential.run_grid(grid.tier1_grid(), engines=engines)
+    results += differential.run_segment_grid(grid.segment_tier1_grid(), engines=engines)
+    results += differential.run_op_grid(grid.op_tier1_grid(), engines=engines)
+    assert all(e.device.type == "cuda" for e in engines._engines.values())
+    fails = [(r.scenario_id, r.detail) for r in results if r.status != "pass"]
+    assert not fails, fails
+    assert differential.cross_check(results) == []
+    committed = baseline.load_baseline(Path(__file__).parent / "baselines" / "verify_smoke_torch.json")
+    drift = baseline.diff_baselines(
+        baseline.build_baseline(results, grid="tier1"), committed, ignore_missing_in_current=True
+    )
+    assert drift.clean, drift.summary()
