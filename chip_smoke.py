@@ -66,12 +66,27 @@ no result line):
    4,194,304 through sim/paper at d_h = 2 and 3, cross-checked, and the
    metamorphic battery and fault replay on the 4,194,304-key random input;
    fails unless K1-K5 launched and K6, K7 did not;
-9. a ``kernels`` JSON line with each kernel's launches on its path
+9. the model layer: DeepSeek-V2-Lite-16B at full width (27 layers,
+   d_model 2048, MLA rank 512, 64 experts top-6 + 2 shared, vocab
+   102,400; 16.21 B float32 parameters made on the card from a seeded
+   generator, bf16 compute) served by ``ServeEngine.generate`` for 4 and
+   then 16 requests of the reference launcher's mix (prompts of 4-47
+   tokens, 16 new tokens each, ``max_len`` 256), cold and warm: prefill
+   and decode-step times synchronised with the card, tokens/s, the card's
+   busy share, exactly 27·16 launches of K1 (one an MoE layer a forward)
+   and one of K5 (``order_by_length``) a run, the same tokens twice; then
+   (a) one layer's ``apply_moe`` with K1 and with its plain version and
+   (b) its ``sorted`` and ``argsort`` dispatches, bit for bit, (c)
+   float32 prefill + decode against ``forward`` within 2e-2 (capacity
+   factor 64, no TF32), (d) ``order_by_length`` against the stable
+   argsort; and K1 timed at the dispatch's shapes beside
+   ``torch.bincount`` plus a stable ``torch.sort``;
+10. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
-   phase 5 for the tagged pair kernel, each plus its launches in phases 7
-   and 8; the untagged pair kernel and the pair row kernel have no caller
-   on any path and are checked in phase 2 only); the launches of single
-   requests are printed on their own lines.
+   phase 5 for the tagged pair kernel, each plus its launches in phases
+   7, 8 and 9; the untagged pair kernel and the pair row kernel have no
+   caller on any path and are checked in phase 2 only); the launches of
+   single requests are printed on their own lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of the JAX package ``repro``.
@@ -80,6 +95,7 @@ JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -119,6 +135,11 @@ from repro_torch.serve.fleet.loadgen import drive_closed_loop, request_mix  # no
 from repro_torch.verify import cross_check, differential, grid, metamorphic_checks  # noqa: E402
 from repro_torch.verify.properties import fault_replay_for_engine_run  # noqa: E402
 from repro_torch.verify import __main__ as verify_cli  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.launch.serve import synthetic_requests  # noqa: E402
+from repro_torch.models import layers, lm, moe  # noqa: E402
+from repro_torch.models.common import NO_SHARD, layer, tree_leaves  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
@@ -1176,6 +1197,12 @@ def busy_share(label: str, fn) -> None:
     busy = sum(ms for _, ms in calls[0])
     print(f"busy {label}: card busy {busy:.3f} ms of {walls[0] * 1e3:.3f} ms wall "
           f"({100 * busy / (walls[0] * 1e3):.2f}%), {len(calls[0])} device events")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for name, ms in calls[0]:
+        by_name[name][0] += ms
+        by_name[name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    print("  top device time: " + "; ".join(f"{name[:70]} {ms:.3f} ms ({n})" for name, (ms, n) in top))
 
 
 def sortd_run(cfg: SortdConfig, reqs: list, label: str) -> dict:
@@ -1451,6 +1478,185 @@ def conformance() -> dict:
     return dict(total)
 
 
+# ----------------------------------------------------------------- phase 9
+SERVE_ARCH = "deepseek-v2-lite-16b"
+SERVE_BATCHES = (4, 16)  # requests a generate
+SERVE_NEW_TOKENS, SERVE_MAX_LEN = 16, 256  # the reference launcher's
+
+
+def sync_timed(fn, sink: list):
+    """``fn`` with its milliseconds, synchronised with the card on both
+    sides, appended to ``sink``."""
+    def wrapper(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def serve_batch(cfg, params, reqs: list, read_ms: float) -> dict:
+    """Two ``generate`` runs of ``reqs`` (cold, then warm), each held to
+    ``max_new_tokens`` tokens a request, 27·N launches of K1 and one of
+    K5; the same tokens both times; then one more under the profiler for
+    the card's busy share.  Returns the launches of the two runs."""
+    R, N = len(reqs), SERVE_NEW_TOKENS
+    eng = ServeEngine(cfg, params, registry.get_model_api(cfg), max_len=SERVE_MAX_LEN)
+    prefill_ms, decode_ms = [], []
+    eng._prefill = sync_timed(eng._prefill, prefill_ms)
+    eng._decode = sync_timed(eng._decode, decode_ms)
+    total, outs = collections.Counter(), []
+    want = {"bucket_count_rank": cfg.num_layers * N, "sort_pairs_tile_tagged": 1}
+    for run in ("cold", "warm"):
+        prefill_ms.clear()
+        decode_ms.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(reqs)
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        if sorted(out) != [r.id for r in reqs] or any(len(out[r.id]) != N for r in reqs):
+            fail(f"generate of {R} requests did not give {N} tokens to each")
+        if {k: v for k, v in got.items() if v} != want:
+            fail(f"generate of {R} requests launched {got}, not {want}")
+        total.update(got)
+        outs.append(out)
+        print(f"serve {SERVE_ARCH} R={R} N={N} {run}: prefill {prefill_ms[0]:.3f} ms, decode "
+              f"{statistics.median(decode_ms):.3f} ms a step (median of {len(decode_ms)}; min {min(decode_ms):.3f}, "
+              f"max {max(decode_ms):.3f}, first {decode_ms[0]:.3f}), wall {wall * 1e3:.1f} ms, "
+              f"{R * N / wall:.1f} tokens/s; reading every parameter once at 3.35 TB/s takes {read_ms:.2f} ms; "
+              f"launches {dict((k, v) for k, v in got.items() if v)}")
+    if outs[0] != outs[1]:
+        fail(f"two generate runs of the same {R} requests gave different tokens")
+    busy_share(f"generate R={R} N={N}", lambda: eng.generate(reqs))
+    lens = [len(r.prompt) for r in reqs]
+    order = [r.id for r in eng.order_by_length(reqs)]
+    if order != [int(i) for i in np.argsort(lens, kind="stable")]:
+        fail(f"order_by_length of {lens} gave {order}, not the stable argsort")
+    print(f"  (d) order_by_length of {R} requests equals np.argsort(lens, kind='stable'); "
+          f"first tokens of request 0: {outs[0][0][:8]}")
+    return total
+
+
+def plain_count_rank(ids, num_buckets):
+    return partition_kernel.bucket_count_rank_plain(ids, num_buckets)
+
+
+def moe_dispatch_checks(cfg, params, reqs: list) -> None:
+    """(a) layer 0's ``apply_moe`` with K1 and with its plain version, and
+    (b) the ``sorted`` and ``argsort`` dispatches, on the prefill and
+    decode hidden states of ``reqs`` at the served config: bit for bit."""
+    blk = layer(params["blocks"], 0)
+    eng = ServeEngine(cfg, params, registry.get_model_api(cfg), max_len=SERVE_MAX_LEN)
+    toks, _ = eng._pad_batch(reqs)
+    argsort = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="argsort"))
+    with torch.inference_mode():
+        for what, t in (("prefill", toks), ("decode", toks[:, -1:])):
+            h = layers.apply_norm(blk["ln2"], layers.embed_tokens(params["embedding"], t, cfg, NO_SHARD), cfg)
+            y_k1, _ = moe.apply_moe(blk["moe"], h, cfg, NO_SHARD)
+            kernel = moe.ops.bucket_count_rank
+            moe.ops.bucket_count_rank = plain_count_rank
+            try:
+                y_plain, _ = moe.apply_moe(blk["moe"], h, cfg, NO_SHARD)
+            finally:
+                moe.ops.bucket_count_rank = kernel
+            y_argsort, _ = moe.apply_moe(blk["moe"], h, argsort, NO_SHARD)
+            if not torch.equal(y_k1, y_plain):
+                fail(f"(a) apply_moe at {what} ({tuple(h.shape)}): K1 and its plain version differ")
+            if not torch.equal(y_k1, y_argsort):
+                fail(f"(b) apply_moe at {what} ({tuple(h.shape)}): the sorted and argsort dispatches differ")
+            A = h.shape[0] * h.shape[1] * cfg.moe.num_experts_per_tok
+            print(f"  (a), (b) apply_moe layer 0 at {what} {tuple(h.shape)}: {A} assignments over "
+                  f"{cfg.moe.num_experts} experts, capacity {moe.capacity(A, cfg)}: K1, its plain version and "
+                  f"the argsort dispatch give equal outputs bit for bit")
+
+
+def serve_consistency(cfg, params) -> None:
+    """(c) the reference's serve-consistency test at full width: float32
+    compute (no TF32) and capacity factor 64, so no token drops at any T;
+    prefill on S - 2 tokens and two decode steps against ``forward``."""
+    f32 = cfg.replace(dtype=torch.float32, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        B, S = 2, 24
+        gen = np.random.default_rng(1)
+        toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (B, S))).to(DEV)
+        with torch.inference_mode():
+            logits, _ = lm.forward(params, {"tokens": toks}, f32)
+            cache = lm.init_cache(f32, B, S + 4, device=DEV)
+            last, cache = lm.prefill(params, {"tokens": toks[:, : S - 2]}, f32, NO_SHARD, cache)
+            errs = [float((last - logits[:, S - 3]).abs().max())]
+            for pos in (S - 2, S - 1):
+                lg, cache = lm.decode_step(params, toks[:, pos : pos + 1], f32, NO_SHARD, cache, pos)
+                errs.append(float((lg - logits[:, pos]).abs().max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not all(math.isfinite(e) for e in errs) or max(errs) >= 2e-2:
+        fail(f"(c) prefill + decode against forward at full width: errors {errs}, limit 2e-2")
+    print(f"  (c) float32 prefill + 2 decode steps against forward, B={B} S={S}: max abs error "
+          f"{max(errs):.3e} (prefill {errs[0]:.3e}, decode {errs[1]:.3e}, {errs[2]:.3e}), limit 2e-2")
+
+
+def moe_count_rank_times(cfg, batches: list) -> None:
+    """K1 at the MoE dispatch's shapes (A = 6·T ids over 64 experts, T the
+    prefill or decode tokens of a batch) against its plain version and
+    ``torch.bincount`` plus a stable ``torch.sort``."""
+    gen = np.random.default_rng(9)
+    E = cfg.moe.num_experts
+    for T in sorted({t for R, L in batches for t in (R * L, R)}):
+        A = T * cfg.moe.num_experts_per_tok
+        ids = torch.from_numpy(gen.integers(0, E, A).astype(np.int32)).to(DEV)
+        kernel = cuda_ms(lambda: partition_kernel.bucket_count_rank(ids, E), reps=21)
+        plain = cuda_ms(lambda: partition_kernel.bucket_count_rank_plain(ids, E), reps=5)
+        library = cuda_ms(lambda: (torch.bincount(ids, minlength=E), torch.sort(ids, stable=True)), reps=21)
+        b, by = bound(4 * A + 4 * E + 4 * A, 2 * A)
+        print(f"kernel bucket_count_rank at the MoE dispatch, T={T} tokens, A={A} ids, B={E}: {kernel:.4f} ms "
+              f"by events, plain {plain:.4f} ms, torch.bincount + stable torch.sort {library:.4f} ms, "
+              f"bound {b:.2e} ms ({by})")
+
+
+def model_serving() -> dict:
+    """Phase 9: DeepSeek-V2-Lite-16B at full width on the card, served by
+    ``ServeEngine`` over the port's model layer."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config(SERVE_ARCH)
+    api = registry.get_model_api(cfg)
+    t = time.perf_counter()
+    params = api.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t
+    leaves = tree_leaves(params)
+    n, nbytes = lm.counted_params(params), sum(x.numel() * x.element_size() for x in leaves)
+    if n != cfg.param_count():
+        fail(f"{SERVE_ARCH}: {n} parameters, cfg.param_count() says {cfg.param_count()}")
+    read_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"phase 9 model {SERVE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"MLA rank {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} experts top-{cfg.moe.num_experts_per_tok} + "
+          f"{cfg.moe.num_shared_experts} shared, vocab {cfg.vocab_size}; {n:,} parameters = cfg.param_count() "
+          f"({sum(x.numel() for x in leaves):,} with the norm scales), {nbytes / 2**30:.2f} GiB of float32 weights "
+          f"made on the card in {built:.2f} s; max allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    total = collections.Counter()
+    batches = []
+    for R in SERVE_BATCHES:
+        reqs = synthetic_requests(R, cfg.vocab_size, SERVE_NEW_TOKENS)
+        total.update(serve_batch(cfg, params, reqs, read_ms))
+        batches.append((R, max(len(r.prompt) for r in reqs)))
+    print(f"  max allocated while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    moe_dispatch_checks(cfg, params, synthetic_requests(SERVE_BATCHES[-1], cfg.vocab_size, SERVE_NEW_TOKENS))
+    serve_consistency(cfg, params)
+    moe_count_rank_times(cfg, batches)
+    del params, leaves
+    torch.cuda.empty_cache()
+    print(f"phase 9 (model serving): {time.perf_counter() - t0:.1f} s; launches {dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     preflight()
     rows = kernel_checks()
@@ -1493,18 +1699,21 @@ def main() -> None:
 
     verify_counts = conformance()
 
+    model_counts = {name: 0 for name in KERNELS}
+    model_counts.update(model_serving())
+
     launches = {
         **sort_counts,
         "batched_row_sort": seg_counts["batched_row_sort"],
         "sort_pairs_tile_tagged": pair_counts["sort_pairs_tile_tagged"],
     }
     for name in launches:
-        launches[name] += serve_counts[name] + verify_counts[name]
+        launches[name] += serve_counts[name] + verify_counts[name] + model_counts[name]
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
-            c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts)
+            c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, model_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

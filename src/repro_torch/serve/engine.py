@@ -1,0 +1,98 @@
+"""Batched serving engine: prefill + greedy decode over the port's models.
+
+The port's copy of ``repro.serve.engine``.  Batch formation uses the
+paper's technique: requests are sorted by prompt length with the port's
+``SortEngine.sort_pairs``, which runs the tagged pair-sort kernel K5 on
+the engine's device, so each left-padded prefill batch wastes the fewest
+pad tokens.  Equal lengths keep their arrival order: the sort key carries
+the request's index, so the order is ``np.argsort(lens, kind="stable")``
+(the reference sorts the bare lengths, and its bitonic network may swap
+equal ones).
+
+``generate`` runs eagerly under ``torch.inference_mode()``; the model's
+``prefill`` and ``decode_step`` launch the count/rank kernel K1 once an
+MoE layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import partition
+from repro_torch.core.engine import SortEngine, _resolve_device
+from repro_torch.models.common import NO_SHARD
+
+
+@dataclasses.dataclass
+class Request:
+    id: int
+    prompt: np.ndarray  # (len,) int32 token ids
+    max_new_tokens: int = 16
+
+
+class ServeEngine:
+    """Serve ``requests`` with ``model_api`` (``repro_torch.models.lm``)
+    over ``params`` on ``device`` (``None``: the card, raising when there
+    is none; ``"cpu"``: the CPU).  ``sorter`` orders the batch; by default
+    a ``SortEngine`` on the same device."""
+
+    def __init__(self, cfg: ModelConfig, params, model_api, *, max_len: int = 512,
+                 sorter: SortEngine | None = None, device=None):
+        self.cfg, self.params, self.api = cfg, params, model_api
+        self.max_len = max_len
+        self.device = _resolve_device(device)
+        self.sorter = sorter if sorter is not None else SortEngine(device=self.device)
+        if self.sorter.device != self.device:
+            raise ValueError(f"sorter runs on {self.sorter.device}, the engine on {self.device}")
+        self._prefill = lambda p, b, c: model_api.prefill(p, b, cfg, NO_SHARD, c)
+        self._decode = lambda p, t, c, pos: model_api.decode_step(p, t, cfg, NO_SHARD, c, pos)
+
+    # ------------------------------------------------------- batch formation
+    def order_by_length(self, requests: list[Request]) -> list[Request]:
+        """Sort requests by prompt length, ties in arrival order: one pair
+        sort on the engine's device (key ``len·n + index``, payload the
+        index) and one transfer of the permutation back to the host."""
+        n = len(requests)
+        if n <= 1:
+            return list(requests)
+        idx = np.arange(n, dtype=np.int64)
+        keys = np.asarray([len(r.prompt) for r in requests], np.int64) * n + idx
+        _, order = self.sorter.sort_pairs(keys, idx.astype(np.int32))
+        return [requests[i] for i in order.tolist()]
+
+    def _pad_batch(self, requests: list[Request]):
+        lens = [len(r.prompt) for r in requests]
+        L = max(lens)
+        # left-pad → aligned ends (right-aligned content): one vectorized
+        # pack instead of a per-request copy loop
+        toks = partition.pack_segments(
+            np.concatenate([r.prompt for r in requests]), lens, L, fill_value=0, align="right",
+        ).astype(np.int64)
+        return torch.from_numpy(toks).to(self.device), L
+
+    # --------------------------------------------------------------- serving
+    def generate(self, requests: list[Request], greedy: bool = True) -> dict[int, list[int]]:
+        """Greedy tokens for every request, ``max_new_tokens`` each, keyed by id."""
+        if not requests:
+            return {}
+        with torch.inference_mode():
+            requests = self.order_by_length(requests)
+            toks, L = self._pad_batch(requests)
+            cache = self.api.init_cache(self.cfg, toks.shape[0], self.max_len, device=self.device)
+            logits, cache = self._prefill(self.params, {"tokens": toks}, cache)
+            out = {r.id: [] for r in requests}
+            steps = max(r.max_new_tokens for r in requests)
+            tok = torch.argmax(logits, -1)[:, None]
+            for s in range(steps):
+                emitted = tok[:, 0].tolist()
+                for i, r in enumerate(requests):
+                    if s < r.max_new_tokens:
+                        out[r.id].append(emitted[i])
+                if s + 1 < steps:  # the last emitted token needs no decode step
+                    logits, cache = self._decode(self.params, tok, cache, L + s)
+                    tok = torch.argmax(logits, -1)[:, None]
+        return out

@@ -466,3 +466,65 @@ def test_cuda_verify_tier1_grid_has_no_drift(cuda_device):
         baseline.build_baseline(results, grid="tier1"), committed, ignore_missing_in_current=True
     )
     assert drift.clean, drift.summary()
+
+
+SERVED = ("mixtral-8x22b", "deepseek-v2-lite-16b", "minitron-4b", "qwen1.5-32b", "qwen1.5-110b", "gemma3-4b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SERVED)
+def test_cuda_smoke_model_serves_as_on_the_cpu(arch, cuda_device):
+    """The smoke config in float32 on the card and on the CPU, on the same
+    seeded weights: forward logits within 1e-4 (float32 sums in another
+    order; no TF32) and the same greedy tokens from ``ServeEngine``."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import ServeEngine
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = registry.get_config(arch, smoke=True).replace(dtype=torch.float32)
+    cpu = lm.init(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 20)))
+    want, _ = lm.forward(cpu, {"tokens": toks}, cfg)
+    got, _ = lm.forward(card, {"tokens": toks.to(cuda_device)}, cfg)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    reqs = synthetic_requests(4, cfg.vocab_size, 6)
+    want = ServeEngine(cfg, cpu, lm, max_len=64, device="cpu").generate(reqs)
+    reset_launches()
+    got = ServeEngine(cfg, card, lm, max_len=64).generate(reqs)
+    counts = launch_counts()
+    assert got == want
+    assert counts["sort_pairs_tile_tagged"] == 1
+    assert counts["bucket_count_rank"] == (cfg.num_layers * 6 if cfg.is_moe else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32), ids=("bf16", "f32"))
+def test_cuda_moe_dispatch_on_k1_equals_its_plain_version(dtype, cuda_device, monkeypatch):
+    """DeepSeek's fan-out (64 experts, top-6, 2 shared) at narrow widths:
+    the ``sorted`` dispatch with K1, with K1's plain version and the
+    ``argsort`` dispatch give equal outputs bit for bit, one launch of K1."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_counts, ops, reset_launches
+    from repro_torch.models import moe
+    from repro_torch.models.common import NO_SHARD
+
+    cfg = registry.get_config("deepseek-v2-lite-16b", smoke=True).replace(dtype=dtype)
+    m = dataclasses.replace(cfg.moe, num_experts=64, num_experts_per_tok=6, expert_d_ff=32, capacity_factor=1.25)
+    cfg = cfg.replace(moe=m)
+    p = moe.init_moe(torch.Generator(device=cuda_device).manual_seed(4), cfg)
+    x = torch.randn((16, 47, cfg.d_model), generator=torch.Generator(device=cuda_device).manual_seed(5),
+                    device=cuda_device).to(dtype)
+    reset_launches()
+    y_k1, _ = moe.apply_moe(p, x, cfg, NO_SHARD)
+    assert launch_counts()["bucket_count_rank"] == 1
+    y_argsort, _ = moe.apply_moe(p, x, cfg.replace(moe=dataclasses.replace(m, dispatch="argsort")), NO_SHARD)
+    monkeypatch.setattr(ops, "bucket_count_rank", lambda ids, nb: partition_kernel.bucket_count_rank_plain(ids, nb))
+    y_plain, _ = moe.apply_moe(p, x, cfg, NO_SHARD)
+    assert torch.equal(y_k1, y_plain) and torch.equal(y_k1, y_argsort)
