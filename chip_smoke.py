@@ -81,12 +81,30 @@ no result line):
    factor 64, no TF32), (d) ``order_by_length`` against the stable
    argsort; and K1 timed at the dispatch's shapes beside
    ``torch.bincount`` plus a stable ``torch.sort``;
-10. a ``kernels`` JSON line with each kernel's launches on its path
+10. the other model families at full width, each built on the card from a
+   seeded generator, served, checked and freed before the next (the
+   card's allocated memory back at its level after DeepSeek is freed):
+   Zamba2-2.7B (hybrid: 54 Mamba2 blocks, d_model 2560, one shared
+   attention + MLP block every 6; 9.07 GiB of float32 weights) served
+   for 4 and then 16 requests as in phase 9, with K5 once and K1 never a
+   ``generate``, the same tokens twice, its counted weights equal to
+   ``cfg.param_count()`` plus the shared block's ``wq`` (2560^2, which
+   the reference's count leaves out), (c) float32 prefill of 600 tokens
+   (two 256-position chunks and a padded tail) + 2 decode steps against
+   ``forward`` within 2e-2, and (e) one layer's ``ssd_chunked`` at S =
+   600 against the decode update applied position by position within
+   1e-3 relative; then mamba2-370m (ssm), whisper-tiny (encdec) and
+   qwen2-vl-7b (vlm) served for 4 requests each, with (c) at 602 tokens
+   (mamba2, and (e)), against random (B, 1500, 384) encoder frames
+   (whisper) and with 1,024 random vision embeddings on a 32 x 32 patch
+   grid of M-RoPE positions at S = 1,100 (qwen2-vl); every time beside
+   the card's name and power limit;
+11. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
-   7, 8 and 9; the untagged pair kernel and the pair row kernel have no
-   caller on any path and are checked in phase 2 only); the launches of
-   single requests are printed on their own lines.
+   7, 8, 9 and 10; the untagged pair kernel and the pair row kernel have
+   no caller on any path and are checked in phase 2 only); the launches
+   of single requests are printed on their own lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of the JAX package ``repro``.
@@ -96,6 +114,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -137,7 +156,7 @@ from repro_torch.verify.properties import fault_replay_for_engine_run  # noqa: E
 from repro_torch.verify import __main__ as verify_cli  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.launch.serve import synthetic_requests  # noqa: E402
-from repro_torch.models import layers, lm, moe  # noqa: E402
+from repro_torch.models import layers, lm, moe, ssm  # noqa: E402
 from repro_torch.models.common import NO_SHARD, layer, tree_leaves  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -1497,18 +1516,21 @@ def sync_timed(fn, sink: list):
     return wrapper
 
 
-def serve_batch(cfg, params, reqs: list, read_ms: float) -> dict:
+def serve_batch(cfg, params, reqs: list, read_ms: float, card: str) -> dict:
     """Two ``generate`` runs of ``reqs`` (cold, then warm), each held to
-    ``max_new_tokens`` tokens a request, 27·N launches of K1 and one of
-    K5; the same tokens both times; then one more under the profiler for
-    the card's busy share.  Returns the launches of the two runs."""
+    ``max_new_tokens`` tokens a request, L·N launches of K1 (one an MoE
+    layer a forward; none without MoE) and one of K5; the same tokens
+    both times; then one more under the profiler for the card's busy
+    share.  Returns the launches of the two runs."""
     R, N = len(reqs), SERVE_NEW_TOKENS
     eng = ServeEngine(cfg, params, registry.get_model_api(cfg), max_len=SERVE_MAX_LEN)
     prefill_ms, decode_ms = [], []
     eng._prefill = sync_timed(eng._prefill, prefill_ms)
     eng._decode = sync_timed(eng._decode, decode_ms)
     total, outs = collections.Counter(), []
-    want = {"bucket_count_rank": cfg.num_layers * N, "sort_pairs_tile_tagged": 1}
+    want = {"sort_pairs_tile_tagged": 1}
+    if cfg.is_moe:
+        want["bucket_count_rank"] = cfg.num_layers * N
     for run in ("cold", "warm"):
         prefill_ms.clear()
         decode_ms.clear()
@@ -1524,14 +1546,14 @@ def serve_batch(cfg, params, reqs: list, read_ms: float) -> dict:
             fail(f"generate of {R} requests launched {got}, not {want}")
         total.update(got)
         outs.append(out)
-        print(f"serve {SERVE_ARCH} R={R} N={N} {run}: prefill {prefill_ms[0]:.3f} ms, decode "
+        print(f"serve {cfg.name} R={R} N={N} {run} on {card}: prefill {prefill_ms[0]:.3f} ms, decode "
               f"{statistics.median(decode_ms):.3f} ms a step (median of {len(decode_ms)}; min {min(decode_ms):.3f}, "
               f"max {max(decode_ms):.3f}, first {decode_ms[0]:.3f}), wall {wall * 1e3:.1f} ms, "
               f"{R * N / wall:.1f} tokens/s; reading every parameter once at 3.35 TB/s takes {read_ms:.2f} ms; "
               f"launches {dict((k, v) for k, v in got.items() if v)}")
     if outs[0] != outs[1]:
         fail(f"two generate runs of the same {R} requests gave different tokens")
-    busy_share(f"generate R={R} N={N}", lambda: eng.generate(reqs))
+    busy_share(f"{cfg.name} generate R={R} N={N} on {card}", lambda: eng.generate(reqs))
     lens = [len(r.prompt) for r in reqs]
     order = [r.id for r in eng.order_by_length(reqs)]
     if order != [int(i) for i in np.argsort(lens, kind="stable")]:
@@ -1574,30 +1596,39 @@ def moe_dispatch_checks(cfg, params, reqs: list) -> None:
                   f"the argsort dispatch give equal outputs bit for bit")
 
 
-def serve_consistency(cfg, params) -> None:
+def serve_consistency(cfg, params, S: int = 24, extras=None) -> None:
     """(c) the reference's serve-consistency test at full width: float32
-    compute (no TF32) and capacity factor 64, so no token drops at any T;
-    prefill on S - 2 tokens and two decode steps against ``forward``."""
+    compute (no TF32) and, with MoE, capacity factor 64, so no token drops
+    at any T; prefill on S - 2 tokens and two decode steps against
+    ``forward``.  ``extras(B, S)`` gives the family's other inputs
+    (encoder frames; vision embeddings and their (3, B, S) positions)."""
     f32 = cfg.replace(dtype=torch.float32, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+    api = registry.get_model_api(cfg)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        B, S = 2, 24
+        B = 2
         gen = np.random.default_rng(1)
         toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, (B, S))).to(DEV)
+        batch = {"tokens": toks, **(extras(B, S) if extras else {})}
+        head = dict(batch, tokens=toks[:, : S - 2])
+        if "positions_thw" in batch:
+            head["positions_thw"] = batch["positions_thw"][:, :, : S - 2]
         with torch.inference_mode():
-            logits, _ = lm.forward(params, {"tokens": toks}, f32)
-            cache = lm.init_cache(f32, B, S + 4, device=DEV)
-            last, cache = lm.prefill(params, {"tokens": toks[:, : S - 2]}, f32, NO_SHARD, cache)
+            logits, _ = api.forward(params, batch, f32)
+            cache = api.init_cache(f32, B, S + 4, device=DEV)
+            last, cache = api.prefill(params, head, f32, NO_SHARD, cache)
             errs = [float((last - logits[:, S - 3]).abs().max())]
             for pos in (S - 2, S - 1):
-                lg, cache = lm.decode_step(params, toks[:, pos : pos + 1], f32, NO_SHARD, cache, pos)
+                lg, cache = api.decode_step(params, toks[:, pos : pos + 1], f32, NO_SHARD, cache, pos)
                 errs.append(float((lg - logits[:, pos]).abs().max()))
+            del logits, cache
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     if not all(math.isfinite(e) for e in errs) or max(errs) >= 2e-2:
-        fail(f"(c) prefill + decode against forward at full width: errors {errs}, limit 2e-2")
-    print(f"  (c) float32 prefill + 2 decode steps against forward, B={B} S={S}: max abs error "
+        fail(f"(c) {cfg.name}: prefill + decode against forward at full width: errors {errs}, limit 2e-2")
+    print(f"  (c) {cfg.name}: float32 prefill of {S - 2} tokens + 2 decode steps against forward, B={B} S={S}"
+          f"{' with ' + ', '.join(k for k in batch if k != 'tokens') if len(batch) > 1 else ''}: max abs error "
           f"{max(errs):.3e} (prefill {errs[0]:.3e}, decode {errs[1]:.3e}, {errs[2]:.3e}), limit 2e-2")
 
 
@@ -1619,41 +1650,169 @@ def moe_count_rank_times(cfg, batches: list) -> None:
               f"bound {b:.2e} ms ({by})")
 
 
-def model_serving() -> dict:
-    """Phase 9: DeepSeek-V2-Lite-16B at full width on the card, served by
-    ``ServeEngine`` over the port's model layer."""
-    t0 = time.perf_counter()
+def build_model(arch: str, phase: int):
+    """``arch`` at full width, its float32 weights made on the card from a
+    seeded generator; fails unless its counted weights are
+    ``cfg.param_count()``, plus the hybrid shared block's ``wq``, which
+    the reference's count leaves out.  Returns (cfg, params, ms to read
+    every weight once at the peak rate)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = registry.get_config(SERVE_ARCH)
-    api = registry.get_model_api(cfg)
+    cfg = registry.get_config(arch)
     t = time.perf_counter()
-    params = api.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    params = registry.get_model_api(cfg).init(cfg, torch.Generator(device=DEV).manual_seed(0))
     torch.cuda.synchronize()
     built = time.perf_counter() - t
     leaves = tree_leaves(params)
     n, nbytes = lm.counted_params(params), sum(x.numel() * x.element_size() for x in leaves)
-    if n != cfg.param_count():
-        fail(f"{SERVE_ARCH}: {n} parameters, cfg.param_count() says {cfg.param_count()}")
-    read_ms = nbytes / PEAK_BYTES_S * 1e3
-    print(f"phase 9 model {SERVE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, "
-          f"MLA rank {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} experts top-{cfg.moe.num_experts_per_tok} + "
-          f"{cfg.moe.num_shared_experts} shared, vocab {cfg.vocab_size}; {n:,} parameters = cfg.param_count() "
-          f"({sum(x.numel() for x in leaves):,} with the norm scales), {nbytes / 2**30:.2f} GiB of float32 weights "
-          f"made on the card in {built:.2f} s; max allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    shared_wq = cfg.d_model * cfg.num_heads * cfg.resolved_head_dim if cfg.is_hybrid else 0
+    if n != cfg.param_count() + shared_wq:
+        fail(f"{arch}: {n} counted parameters, the tree's layout gives {cfg.param_count() + shared_wq}")
+    gap = (f" + {shared_wq:,} (the shared block's wq, which the reference's param_count() leaves out)"
+           if shared_wq else "")
+    print(f"phase {phase} model {arch} ({cfg.family}): {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}; {n:,} counted parameters = cfg.param_count() {cfg.param_count():,}{gap}; "
+          f"{sum(x.numel() for x in leaves):,} with every leaf, {nbytes / 2**30:.2f} GiB of float32 weights made on "
+          f"the card in {built:.2f} s; max allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return cfg, params, nbytes / PEAK_BYTES_S * 1e3
+
+
+def model_serving() -> dict:
+    """Phase 9: DeepSeek-V2-Lite-16B at full width on the card, served by
+    ``ServeEngine`` over the port's model layer."""
+    t0 = time.perf_counter()
+    cfg, params, read_ms = build_model(SERVE_ARCH, 9)
+    print(f"  {cfg.num_heads} heads, MLA rank {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.num_experts_per_tok} + {cfg.moe.num_shared_experts} shared")
     total = collections.Counter()
     batches = []
     for R in SERVE_BATCHES:
         reqs = synthetic_requests(R, cfg.vocab_size, SERVE_NEW_TOKENS)
-        total.update(serve_batch(cfg, params, reqs, read_ms))
+        total.update(serve_batch(cfg, params, reqs, read_ms, smi()))
         batches.append((R, max(len(r.prompt) for r in reqs)))
     print(f"  max allocated while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     moe_dispatch_checks(cfg, params, synthetic_requests(SERVE_BATCHES[-1], cfg.vocab_size, SERVE_NEW_TOKENS))
     serve_consistency(cfg, params)
     moe_count_rank_times(cfg, batches)
-    del params, leaves
+    del params
     torch.cuda.empty_cache()
     print(f"phase 9 (model serving): {time.perf_counter() - t0:.1f} s; launches {dict(total)}")
+    return dict(total)
+
+
+# ---------------------------------------------------------------- phase 10
+# Zamba2 first (served at 4 and 16 requests), then one arch of each other
+# family (4 requests); (c) runs past two 256-position SSD chunks.
+FAMILY_ARCHS = ("zamba2-2.7b", "mamba2-370m", "whisper-tiny", "qwen2-vl-7b")
+SSM_CHECK_LEN = 602  # 2 x 256 + 90: the inter-chunk recurrence and a padded tail
+VLM_CHECK_LEN, VLM_GRID = 1100, 32  # 1,024 vision tokens on a 32 x 32 patch grid, then text
+LEAK_BYTES = 64 << 20  # what a freed model may leave allocated on the card
+
+
+def allocated_back(base: int, label: str) -> None:
+    """Fail unless the card's allocated memory is back within
+    ``LEAK_BYTES`` of ``base``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    now = torch.cuda.memory_allocated()
+    print(f"  allocated after {label}: {now / 2**20:.1f} MiB (phase 10 started at {base / 2**20:.1f} MiB)")
+    if now - base > LEAK_BYTES:
+        fail(f"{label}: {(now - base) / 2**20:.1f} MiB still allocated on the card")
+
+
+def family_inputs(cfg):
+    """``extras(B, S)`` for check (c): random encoder frames (encdec);
+    random vision embeddings over the first ``vision_tokens`` positions
+    with t = 0 and (h, w) on a ``VLM_GRID``-wide patch grid, then text
+    positions equal on all three axes, which decode's broadcast position
+    continues (vlm)."""
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    if cfg.family == "encdec":
+        return lambda B, S: {"enc_frames": torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=gen, device=DEV)}
+    if cfg.family == "vlm":
+        def extras(B, S):
+            V = cfg.vision_tokens
+            thw = torch.arange(S, device=DEV).repeat(3, B, 1)
+            idx = torch.arange(V, device=DEV)
+            thw[0, :, :V], thw[1, :, :V], thw[2, :, :V] = 0, idx // VLM_GRID, idx % VLM_GRID
+            ve = torch.randn((B, V, cfg.d_model), generator=gen, device=DEV) * cfg.d_model ** -0.5
+            return {"vision_embeds": ve, "positions_thw": thw.to(torch.int32)}
+        return extras
+    return None
+
+
+def ssd_check(cfg, params) -> None:
+    """(e) layer 0's SSD at full width over 600 positions from a random
+    state (random x, B and C, dt = softplus(normal + dt_bias), the layer's
+    A), chunked against the decode update applied position by position,
+    float32 with no TF32: within 1e-3 of the largest magnitude."""
+    blk = layer(params["blocks"]["mamba"], 0)
+    nh, hd, ng, ds = cfg.ssm_heads, cfg.ssm.head_dim, cfg.ssm.n_groups, cfg.ssm.d_state
+    B, S = 2, 600
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=DEV)  # noqa: E731
+    x, B_, C, st0 = rand(B, S, nh, hd), rand(B, S, ng, ds), rand(B, S, ng, ds), rand(B, nh, hd, ds)
+    dt = torch.nn.functional.softplus(rand(B, S, nh) + blk["dt_bias"].float())
+    A = -torch.exp(blk["A_log"].float())
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            y, final = ssm.ssd_chunked(x, dt, A, B_, C, cfg, init_state=st0)
+            st, ys = st0, []
+            for t in range(S):
+                yt, st = ssm.ssd_step(st, x[:, t], dt[:, t], A, B_[:, t].repeat_interleave(nh // ng, 1),
+                                      C[:, t].repeat_interleave(nh // ng, 1))
+                ys.append(yt)
+            y_seq = torch.stack(ys, 1)
+            chunked_ms = cuda_ms(lambda: ssm.ssd_chunked(x, dt, A, B_, C, cfg, init_state=st0), reps=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel_y = float((y - y_seq).abs().max() / y_seq.abs().max())
+    rel_s = float((final - st).abs().max() / st.abs().max())
+    if not (rel_y <= 1e-3 and rel_s <= 1e-3):
+        fail(f"(e) {cfg.name}: ssd_chunked against the sequential update: relative errors {rel_y}, {rel_s}, limit 1e-3")
+    print(f"  (e) {cfg.name}: ssd_chunked (B={B}, S={S}, {nh} heads of {hd}, d_state {ds}, chunks of "
+          f"{cfg.ssm.chunk_size}) against {S} decode updates: relative error outputs {rel_y:.3e}, final state "
+          f"{rel_s:.3e}, limit 1e-3; ssd_chunked {chunked_ms:.3f} ms by events")
+
+
+def serve_family(arch: str, card: str) -> dict:
+    """One arch at full width: built on the card, served, checked; its
+    launches.  The caller frees it."""
+    t0 = time.perf_counter()
+    cfg, params, read_ms = build_model(arch, 10)
+    total = collections.Counter()
+    for R in SERVE_BATCHES if arch == FAMILY_ARCHS[0] else SERVE_BATCHES[:1]:
+        reqs = synthetic_requests(R, cfg.vocab_size, SERVE_NEW_TOKENS)
+        total.update(serve_batch(cfg, params, reqs, read_ms, card))
+    print(f"  {arch}: max allocated while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    S = {"encdec": 24, "vlm": VLM_CHECK_LEN}.get(cfg.family, SSM_CHECK_LEN)
+    serve_consistency(cfg, params, S, family_inputs(cfg))
+    if cfg.ssm.d_state:
+        ssd_check(cfg, params)
+    print(f"  {arch}: {time.perf_counter() - t0:.1f} s; max allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB on {card}")
+    del params
+    return total
+
+
+def model_families() -> dict:
+    """Phase 10: the ssm, hybrid, encdec and vlm families at full width on
+    the card, one model at a time."""
+    t0 = time.perf_counter()
+    card = smi()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    if base > 1 << 30:
+        fail(f"{base / 2**30:.2f} GiB still allocated after phase 9 freed DeepSeek-V2-Lite")
+    print(f"phase 10 starts with {base / 2**20:.1f} MiB allocated on the card (DeepSeek-V2-Lite's 60 GiB freed)")
+    total = collections.Counter()
+    for arch in FAMILY_ARCHS:
+        total.update(serve_family(arch, card))
+        allocated_back(base, arch)
+    print(f"phase 10 (model families): {time.perf_counter() - t0:.1f} s; launches {dict(total)}; card {card}")
     return dict(total)
 
 
@@ -1701,6 +1860,10 @@ def main() -> None:
 
     model_counts = {name: 0 for name in KERNELS}
     model_counts.update(model_serving())
+    family_counts = {name: 0 for name in KERNELS}
+    family_counts.update(model_families())
+    if family_counts["sort_pairs_tile_tagged"] == 0:
+        fail("sort_pairs_tile_tagged never launched on the model families' path")
 
     launches = {
         **sort_counts,
@@ -1708,12 +1871,14 @@ def main() -> None:
         "sort_pairs_tile_tagged": pair_counts["sort_pairs_tile_tagged"],
     }
     for name in launches:
-        launches[name] += serve_counts[name] + verify_counts[name] + model_counts[name]
+        launches[name] += serve_counts[name] + verify_counts[name] + model_counts[name] + family_counts[name]
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
-            c[name] for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, model_counts)
+            c[name]
+            for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, model_counts,
+                      family_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

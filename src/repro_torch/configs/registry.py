@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` → config and model API.
 
 The port's copy of ``repro.configs.registry``.  ``get_model_api`` returns
-the port's decoder LM (``repro_torch.models.lm``) for the ``dense`` and
-``moe`` families, the ones ported so far; the other four families raise
-``NotImplementedError`` naming their ROADMAP item.  The dry-run's part of
-the registry (``input_specs``, ``cell_supported`` and the cell lists)
-waits for the dry-run.
+the port's encoder-decoder (``repro_torch.models.encdec``) for the
+``encdec`` family and its decoder LM (``repro_torch.models.lm``) for the
+other five, as the reference does.  The dry-run's part of the registry
+(``input_specs``, ``cell_supported`` and the cell lists) waits for the
+dry-run.
 """
 
 from __future__ import annotations
@@ -27,20 +27,14 @@ ARCHS: dict[str, str] = {
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
-# Families whose model code is ported, and where the others wait.
-PORTED_FAMILIES = ("dense", "moe")
-FAMILY_TODO = {
-    "ssm": "the ssm family (mamba2) is not ported yet (ROADMAP.md, Queue 1, 'Model layer')",
-    "hybrid": "the hybrid family (zamba2) is not ported yet (ROADMAP.md, Queue 1, 'Model layer')",
-    "encdec": "the encdec family (whisper) is not ported yet (ROADMAP.md, Queue 1, 'Model layer')",
-    "vlm": "the vlm family (qwen2-vl) is not ported yet (ROADMAP.md, Queue 1, 'Model layer')",
-}
+# The model families the port runs: every family of ``ModelConfig``.
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet."""
+    """Raise ``NotImplementedError`` for a family no model code runs."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(FAMILY_TODO.get(cfg.family, f"unknown family {cfg.family!r}"))
+        raise NotImplementedError(f"unknown family {cfg.family!r}")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -51,6 +45,10 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 def get_model_api(cfg: ModelConfig):
     """→ module with init/forward/init_cache/prefill/decode_step."""
     check_family(cfg)
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+
+        return encdec
     from repro_torch.models import lm
 
     return lm

@@ -1,6 +1,7 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [--smoke]``.
 
-Builds the model with random weights from a seeded ``torch.Generator`` on
+Serves any arch of the registry, of every model family.  Builds the
+model with random weights from a seeded ``torch.Generator`` on
 the device, forms the batch by length with the pair-sort kernel, prefills
 a batch of synthetic prompts (4–47 tokens, ``default_rng(0)``) and decodes
 greedily.  ``--device cuda`` (the default) runs on the card and fails

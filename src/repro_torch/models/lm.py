@@ -1,12 +1,14 @@
-"""Decoder-only LMs of the ``dense`` and ``moe`` families: GQA or MLA
-attention, a SwiGLU/GELU MLP or an MoE layer.
+"""Decoder-only LMs: the dense, MoE, SSM, hybrid and VLM families.
 
-The port's copy of ``repro.models.lm`` for the families ported so far;
-the ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` families raise
-``NotImplementedError`` (``configs.registry.check_family``).  Layers keep
-the reference's stacked leading-L parameter layout and run in a Python
-loop over that axis (the reference's ``lax.scan``); each layer's window
-and rope theta ride along as Python values.
+The port's copy of ``repro.models.lm``: GQA or MLA attention with a
+SwiGLU/GELU MLP or an MoE layer (``dense``, ``moe``, and ``vlm`` with
+M-RoPE and vision embeddings written over the first positions), Mamba2
+blocks (``ssm``), and Mamba2 blocks with one shared attention + MLP block
+after every ``hybrid_period`` of them (``hybrid``, zamba2).  The
+``encdec`` family is ``repro_torch.models.encdec``.  Layers keep the
+reference's stacked leading-L parameter layout and run in a Python loop
+over that axis (the reference's ``lax.scan``); each layer's window and
+rope theta ride along as Python values.
 
 API (plain functions on tensors; the device is that of the parameters):
   init(cfg, generator)                           → params
@@ -30,9 +32,10 @@ from repro_torch.configs.registry import check_family
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import RING_INVALID, attention
 from repro_torch.models.common import NO_SHARD, AxisRules, const_init, dense_init, layer, put, shard, tree_map
-from repro_torch.models.rope import apply_rope
+from repro_torch.models.rope import apply_mrope, apply_rope
 
 
 # ============================================================== attention blk
@@ -55,7 +58,7 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig, *, lead: tuple[int, ...] =
     return p
 
 
-def _qkv(p, x, cfg, *, positions, theta):
+def _qkv(p, x, cfg, *, positions, theta, positions_thw=None):
     dt = cfg.dtype
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhe->bshe", x, p["wk"].to(dt))
@@ -65,17 +68,22 @@ def _qkv(p, x, cfg, *, positions, theta):
     if cfg.qk_norm:
         q = L.rms_norm_head(q, p["q_norm"].to(torch.float32))
         k = L.rms_norm_head(k, p["k_norm"].to(torch.float32))
-    if cfg.use_rope and positions is not None:
+    if cfg.mrope_sections and positions_thw is not None:
+        q = apply_mrope(q, positions_thw, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions_thw, cfg.mrope_sections, cfg.rope_theta)
+    elif cfg.use_rope and positions is not None:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     return q, k, v
 
 
-def apply_attn_block(p, x, cfg, rules, *, positions, window, theta, cache_kv=None, pos=None):
+def apply_attn_block(
+    p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None,
+):
     """Attention sublayer.  Train/prefill when ``cache_kv`` is None (returns
     the full-sequence (k, v) for cache building); else one decode step that
     writes this step's keys into the cache tensors in place and returns them."""
-    q, k, v = _qkv(p, x, cfg, positions=positions, theta=theta)
+    q, k, v = _qkv(p, x, cfg, positions=positions, theta=theta, positions_thw=positions_thw)
     if cache_kv is None:
         out = attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk, matmul_bf16=cfg.attn_matmul_bf16)
         new_kv = (k, v)
@@ -105,9 +113,15 @@ def apply_attn_block(p, x, cfg, rules, *, positions, window, theta, cache_kv=Non
 
 
 # ================================================================ blocks
+def _is_mamba(cfg) -> bool:
+    return cfg.family == "ssm" or cfg.is_hybrid
+
+
 def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Every layer's parameters, stacked on a leading L axis."""
     lead, d = (cfg.num_layers,), cfg.d_model
+    if _is_mamba(cfg):
+        return {"ln": L.init_norm(d, cfg, gen.device, lead=lead), "mamba": SSM.init_mamba(gen, cfg, lead=lead)}
     blk = {"ln1": L.init_norm(d, cfg, gen.device, lead=lead), "ln2": L.init_norm(d, cfg, gen.device, lead=lead)}
     blk["attn"] = MLA.init_mla(gen, cfg, lead=lead) if cfg.mla.kv_lora_rank else init_attn(gen, cfg, lead=lead)
     if cfg.is_moe:
@@ -117,8 +131,12 @@ def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return blk
 
 
-def apply_block(blk, x, cfg, rules, *, positions, window, theta, aux, cache=None, pos=None):
+def apply_block(blk, x, cfg, rules, *, positions, window, theta, aux, positions_thw=None, cache=None, pos=None):
     """One decoder layer.  Returns (x, aux, new_cache)."""
+    if _is_mamba(cfg):
+        h = L.apply_norm(blk["ln"], x, cfg)
+        y, new_cache = SSM.apply_mamba(blk["mamba"], h, cfg, rules, cache=cache, pos=pos)
+        return x + y, aux, new_cache
     h = L.apply_norm(blk["ln1"], x, cfg)
     if cfg.mla.kv_lora_rank:
         if cache is None:
@@ -127,7 +145,8 @@ def apply_block(blk, x, cfg, rules, *, positions, window, theta, aux, cache=None
             a, new_cache = MLA.mla_decode(blk["attn"], h, cfg, rules, cache=cache, pos=pos)
     else:
         a, new_cache = apply_attn_block(
-            blk["attn"], h, cfg, rules, positions=positions, window=window, theta=theta, cache_kv=cache, pos=pos,
+            blk["attn"], h, cfg, rules, positions=positions, window=window, theta=theta,
+            positions_thw=positions_thw, cache_kv=cache, pos=pos,
         )
     x = x + a
     h2 = L.apply_norm(blk["ln2"], x, cfg)
@@ -139,24 +158,67 @@ def apply_block(blk, x, cfg, rules, *, positions, window, theta, aux, cache=None
     return x + y, aux, new_cache
 
 
+# ============================================================ shared (zamba2)
+def init_shared_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "in_proj": dense_init(gen, (2 * d, d), 0, cfg.param_dtype),
+        "ln1": L.init_norm(d, cfg, gen.device),
+        "attn": init_attn(gen, cfg),
+        "ln2": L.init_norm(d, cfg, gen.device),
+        "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg),
+    }
+
+
+def apply_shared_block(p, x, x0, cfg, rules, *, positions, cache=None, pos=None):
+    """Zamba2's shared attention block: concat(x, embeddings) → 2d × d
+    projection → attention (global, ``cfg.rope_theta``) and MLP; returns
+    (x + t, new_kv) with ``new_kv`` as ``apply_attn_block`` gives it."""
+    t = torch.einsum("bse,ed->bsd", torch.cat([x, x0], dim=-1), p["in_proj"].to(cfg.dtype))
+    h = L.apply_norm(p["ln1"], t, cfg)
+    a, new_cache = apply_attn_block(
+        p["attn"], h, cfg, rules, positions=positions, window=0, theta=cfg.rope_theta, cache_kv=cache, pos=pos,
+    )
+    t = t + a
+    h2 = L.apply_norm(p["ln2"], t, cfg)
+    t = t + L.apply_mlp(p["mlp"], h2, cfg, rules)
+    return x + t, new_cache
+
+
+def _shared_after(cfg, i: int) -> "int | None":
+    """The period whose shared block runs after layer ``i``, if one does."""
+    if cfg.is_hybrid and (i + 1) % cfg.hybrid_period == 0:
+        return i // cfg.hybrid_period
+    return None
+
+
 # ==================================================================== init
 def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters on ``generator``'s device, drawn from it."""
     check_family(cfg)
-    return {
+    params = {
         "embedding": L.init_embedding(generator, cfg),
         "final_norm": L.init_norm(cfg.d_model, cfg, generator.device),
         "blocks": init_blocks(generator, cfg),
     }
+    if cfg.is_hybrid:
+        params["shared"] = init_shared_block(generator, cfg)
+    return params
 
 
-# leaves that ``ModelConfig.param_count`` leaves out: norms and biases
-_UNCOUNTED = {"scale", "bias", "q_norm", "k_norm", "bq", "bk", "bv", "bi", "bo"}
+# leaves that ``ModelConfig.param_count`` leaves out: norms, biases and
+# the Mamba2 blocks' per-channel and per-head vectors
+_UNCOUNTED = {
+    "scale", "bias", "q_norm", "k_norm", "bq", "bk", "bv", "bi", "bo",
+    "conv_b", "A_log", "D", "dt_bias", "norm_scale",
+}
 
 
 def counted_params(params) -> int:
     """The parameters ``ModelConfig.param_count()`` counts: every weight
-    matrix, without norm scales and biases."""
+    matrix, without norm scales, biases and the SSM vectors.  For the
+    hybrid family this is ``param_count()`` plus the shared block's ``wq``
+    (d · H · hd), which the reference's count leaves out."""
     if isinstance(params, dict):
         return sum(0 if k in _UNCOUNTED else counted_params(v) for k, v in params.items())
     return params.numel()
@@ -170,10 +232,14 @@ def _layers(params, cfg):
         yield layer(params["blocks"], i), w, (tg if w == 0 else cfg.rope_theta)
 
 
-def _embed_in(params, tokens, cfg, rules):
-    x = L.embed_tokens(params["embedding"], tokens, cfg, rules)
+def _embed_in(params, batch, cfg, rules):
+    x = L.embed_tokens(params["embedding"], batch["tokens"], cfg, rules)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype, device=x.device)
+    ve = batch.get("vision_embeds")
+    if ve is not None and cfg.vision_tokens:
+        # the reference's dynamic_update_slice at position 0
+        x = torch.cat([ve.to(x.dtype), x[:, ve.shape[1] :]], dim=1)
     return x
 
 
@@ -182,28 +248,49 @@ def _logits(params, x, cfg, rules):
     return L.unembed(params["embedding"], x, cfg, rules)
 
 
+def _store(dst: dict, src: dict) -> None:
+    """Write a Mamba2 block's new cache into its entry of the stacked cache."""
+    for k in dst:
+        dst[k].copy_(src[k])
+
+
 # ==================================================================== forward
 def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
     """Training forward: returns (logits (B,S,V), aux_loss)."""
     check_family(cfg)
     tokens = batch["tokens"]
-    x = _embed_in(params, tokens, cfg, rules)
+    x = x0 = _embed_in(params, batch, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions_thw = batch.get("positions_thw")
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for blk, w, th in _layers(params, cfg):
-        x, aux, _ = apply_block(blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux)
+    for i, (blk, w, th) in enumerate(_layers(params, cfg)):
+        x, aux, _ = apply_block(
+            blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
+        )
+        if _shared_after(cfg, i) is not None:
+            x, _ = apply_shared_block(params["shared"], x, x0, cfg, rules, positions=positions)
     return _logits(params, x, cfg, rules), aux
 
 
 # ================================================================ serve paths
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device) -> dict:
-    """Per-layer cache stacked on a leading L axis."""
+    """Per-layer cache stacked on a leading L axis; the hybrid family adds
+    one KV cache a period for its shared block, stacked on the period."""
     check_family(cfg)
     dtype = dtype or cfg.dtype
     Lc = cfg.num_layers
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if _is_mamba(cfg):
+        cache = {"layers": SSM.init_mamba_cache(cfg, batch, dtype, device, lead=(Lc,))}
+        if cfg.is_hybrid:
+            n_periods = Lc // cfg.hybrid_period
+            cache["shared"] = (
+                torch.zeros((n_periods, batch, max_len, KV, hd), dtype=dtype, device=device),
+                torch.zeros((n_periods, batch, max_len, KV, hd), dtype=dtype, device=device),
+            )
+        return cache
     if cfg.mla.kv_lora_rank:
         return {"layers": MLA.init_mla_cache(cfg, batch, max_len, dtype, device, lead=(Lc,))}
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if cfg.decode_window_cache:
         ws = [cfg.layer_window(i) for i in range(Lc)]
         if not all(w > 0 for w in ws):
@@ -244,18 +331,32 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
     """Run the prompt through the model, filling the cache.
 
     Returns (last-position logits (B,V), cache).  Each layer's keys (or MLA
-    latent) go into the new cache as that layer finishes, which gives the
-    reference's cache with and without ``prefill_inscan_cache``.
+    latent, or Mamba2 conv and SSM states) go into the new cache as that
+    layer finishes, which gives the reference's cache with and without
+    ``prefill_inscan_cache``.
     """
     check_family(cfg)
     tokens = batch["tokens"]
-    x = _embed_in(params, tokens, cfg, rules)
+    x = x0 = _embed_in(params, batch, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions_thw = batch.get("positions_thw")
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     cache = tree_map(torch.clone, cache)
     for i, (blk, w, th) in enumerate(_layers(params, cfg)):
-        x, aux, kv = apply_block(blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux)
         entry = layer(cache["layers"], i)
+        if _is_mamba(cfg):
+            x, aux, new = apply_block(blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, cache=entry)
+            _store(entry, new)
+            p = _shared_after(cfg, i)
+            if p is not None:
+                x, kv = apply_shared_block(params["shared"], x, x0, cfg, rules, positions=positions)
+                ck, cv = layer(cache["shared"], p)
+                put(ck, kv[0].to(ck.dtype), 0)
+                put(cv, kv[1].to(cv.dtype), 0)
+            continue
+        x, aux, kv = apply_block(
+            blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
+        )
         if cfg.mla.kv_lora_rank:
             put(entry["c"], kv[0].to(entry["c"].dtype), 0)
             put(entry["kr"], kv[1].to(entry["kr"].dtype), 0)
@@ -271,14 +372,25 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
 def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict, pos: int):
     """One token for every sequence.  tokens: (B, 1); pos: the position."""
     check_family(cfg)
-    x = _embed_in(params, tokens, cfg, rules)
+    x = x0 = _embed_in(params, {"tokens": tokens}, cfg, rules)
     positions = torch.tensor([pos], device=tokens.device)
+    positions_thw = None
+    if cfg.mrope_sections:
+        positions_thw = torch.full((3, tokens.shape[0], 1), pos, dtype=torch.int32, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     cache = tree_map(torch.clone, cache)
     for i, (blk, w, th) in enumerate(_layers(params, cfg)):
-        x, _, _ = apply_block(
-            blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux,
-            cache=layer(cache["layers"], i), pos=pos,
+        entry = layer(cache["layers"], i)
+        x, _, new = apply_block(
+            blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
+            cache=entry, pos=pos,
         )
+        if _is_mamba(cfg):
+            _store(entry, new)
+        p = _shared_after(cfg, i)
+        if p is not None:
+            x, _ = apply_shared_block(
+                params["shared"], x, x0, cfg, rules, positions=positions, cache=layer(cache["shared"], p), pos=pos,
+            )
     logits = _logits(params, x, cfg, rules)
     return logits[:, 0], cache

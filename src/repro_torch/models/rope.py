@@ -50,9 +50,11 @@ def apply_mrope(
     return _rotate(x, angles)
 
 
-def sinusoidal_positions(seq_len: int, d_model: int, device=None) -> torch.Tensor:
-    """Whisper-style fixed sinusoidal embeddings (B-broadcastable)."""
-    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+def sinusoidal_positions(seq_len: int, d_model: int, device=None, *, start: int = 0) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (B-broadcastable): rows
+    ``start .. start + seq_len - 1`` of the table, each equal to the full
+    table's row bit for bit."""
+    pos = torch.arange(start, start + seq_len, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d_model)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)

@@ -11,7 +11,8 @@ equal ones).
 
 ``generate`` runs eagerly under ``torch.inference_mode()``; the model's
 ``prefill`` and ``decode_step`` launch the count/rank kernel K1 once an
-MoE layer.
+MoE layer.  An ``encdec`` model is prefilled against zero encoder frames
+(the stub frontend's), as in the reference.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ class Request:
 
 
 class ServeEngine:
-    """Serve ``requests`` with ``model_api`` (``repro_torch.models.lm``)
-    over ``params`` on ``device`` (``None``: the card, raising when there
+    """Serve ``requests`` with ``model_api`` (``registry.get_model_api``'s
+    module: ``repro_torch.models.lm`` or ``encdec``) over ``params`` on
+    ``device`` (``None``: the card, raising when there
     is none; ``"cpu"``: the CPU).  ``sorter`` orders the batch; by default
     a ``SortEngine`` on the same device."""
 
@@ -82,8 +84,14 @@ class ServeEngine:
         with torch.inference_mode():
             requests = self.order_by_length(requests)
             toks, L = self._pad_batch(requests)
-            cache = self.api.init_cache(self.cfg, toks.shape[0], self.max_len, device=self.device)
-            logits, cache = self._prefill(self.params, {"tokens": toks}, cache)
+            B, cfg = toks.shape[0], self.cfg
+            batch = {"tokens": toks}
+            if cfg.family == "encdec":
+                batch["enc_frames"] = torch.zeros(
+                    (B, cfg.encoder_seq_len, cfg.d_model), dtype=cfg.dtype, device=self.device
+                )
+            cache = self.api.init_cache(cfg, B, self.max_len, device=self.device)
+            logits, cache = self._prefill(self.params, batch, cache)
             out = {r.id: [] for r in requests}
             steps = max(r.max_new_tokens for r in requests)
             tok = torch.argmax(logits, -1)[:, None]

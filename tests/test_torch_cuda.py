@@ -468,7 +468,28 @@ def test_cuda_verify_tier1_grid_has_no_drift(cuda_device):
     assert drift.clean, drift.summary()
 
 
-SERVED = ("mixtral-8x22b", "deepseek-v2-lite-16b", "minitron-4b", "qwen1.5-32b", "qwen1.5-110b", "gemma3-4b")
+SERVED = (
+    "mixtral-8x22b", "deepseek-v2-lite-16b", "minitron-4b", "qwen1.5-32b", "qwen1.5-110b", "gemma3-4b",
+    "mamba2-370m", "zamba2-2.7b", "whisper-tiny", "qwen2-vl-7b",
+)
+
+
+def _family_batch(cfg, toks: torch.Tensor) -> dict:
+    """Tokens and the family's extra inputs, from a seed: encoder frames
+    (encdec), vision embeddings with a (3, B, S) grid (vlm)."""
+    g = np.random.default_rng(4)
+    B, S = toks.shape
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        frames = g.standard_normal((B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+        batch["enc_frames"] = torch.from_numpy(frames)
+    if cfg.family == "vlm":
+        V = cfg.vision_tokens
+        batch["vision_embeds"] = torch.from_numpy(g.standard_normal((B, V, cfg.d_model)).astype(np.float32))
+        thw = np.broadcast_to(np.arange(S), (3, B, S)).copy()
+        thw[0, :, :V], thw[1, :, :V], thw[2, :, :V] = 0, np.arange(V) // 4, np.arange(V) % 4
+        batch["positions_thw"] = torch.from_numpy(thw.astype(np.int32))
+    return batch
 
 
 @pytest.mark.cuda
@@ -480,22 +501,22 @@ def test_cuda_smoke_model_serves_as_on_the_cpu(arch, cuda_device):
     from repro_torch.configs import registry
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import synthetic_requests
-    from repro_torch.models import lm
     from repro_torch.models.common import tree_map
     from repro_torch.serve import ServeEngine
 
     assert not torch.backends.cuda.matmul.allow_tf32
     cfg = registry.get_config(arch, smoke=True).replace(dtype=torch.float32)
-    cpu = lm.init(cfg, torch.Generator().manual_seed(0))
+    api = registry.get_model_api(cfg)
+    cpu = api.init(cfg, torch.Generator().manual_seed(0))
     card = tree_map(lambda t: t.to(cuda_device), cpu)
-    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 20)))
-    want, _ = lm.forward(cpu, {"tokens": toks}, cfg)
-    got, _ = lm.forward(card, {"tokens": toks.to(cuda_device)}, cfg)
+    batch = _family_batch(cfg, torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40))))
+    want, _ = api.forward(cpu, batch, cfg)
+    got, _ = api.forward(card, tree_map(lambda t: t.to(cuda_device), batch), cfg)
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     reqs = synthetic_requests(4, cfg.vocab_size, 6)
-    want = ServeEngine(cfg, cpu, lm, max_len=64, device="cpu").generate(reqs)
+    want = ServeEngine(cfg, cpu, api, max_len=64, device="cpu").generate(reqs)
     reset_launches()
-    got = ServeEngine(cfg, card, lm, max_len=64).generate(reqs)
+    got = ServeEngine(cfg, card, api, max_len=64).generate(reqs)
     counts = launch_counts()
     assert got == want
     assert counts["sort_pairs_tile_tagged"] == 1
@@ -528,3 +549,31 @@ def test_cuda_moe_dispatch_on_k1_equals_its_plain_version(dtype, cuda_device, mo
     monkeypatch.setattr(ops, "bucket_count_rank", lambda ids, nb: partition_kernel.bucket_count_rank_plain(ids, nb))
     y_plain, _ = moe.apply_moe(p, x, cfg, NO_SHARD)
     assert torch.equal(y_k1, y_plain) and torch.equal(y_k1, y_argsort)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunked_equals_the_sequential_update(cuda_device):
+    """Zamba2's SSD at full width (80 heads of 64, d_state 64, chunks of
+    256) over 600 positions (two chunks and a padded tail) from a random
+    state, on the card in float32 (no TF32): the outputs and the final
+    state within 1e-3 of the decode update applied position by position,
+    relative to their largest magnitude."""
+    from repro_torch.configs import registry
+    from repro_torch.models import ssm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = registry.get_config("zamba2-2.7b")
+    B, S, nh, hd, ds = 2, 600, cfg.ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    f = lambda *s: torch.randn(s, generator=g, device=cuda_device)  # noqa: E731
+    x, B_, C = f(B, S, nh, hd), f(B, S, 1, ds), f(B, S, 1, ds)
+    dt, A = torch.nn.functional.softplus(f(B, S, nh)), -torch.exp(0.5 * f(nh))
+    st0 = 0.5 * f(B, nh, hd, ds)
+    y, final = ssm.ssd_chunked(x, dt, A, B_, C, cfg, init_state=st0)
+    st, ys = st0, []
+    for t in range(S):
+        yt, st = ssm.ssd_step(st, x[:, t], dt[:, t], A, B_[:, t].expand(B, nh, ds), C[:, t].expand(B, nh, ds))
+        ys.append(yt)
+    y_seq = torch.stack(ys, 1)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    assert rel(y, y_seq) <= 1e-3 and rel(final, st) <= 1e-3

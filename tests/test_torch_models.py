@@ -5,6 +5,10 @@ JAX parameters come from ``api.init(PRNGKey(0), cfg)``, go to numpy and
 cross with ``params_from_numpy``, so both packages compute on the same
 weights; inputs are made with numpy from a seed.  On the CPU the port's
 MoE ``sorted`` dispatch runs the count/rank kernel's plain version.
+The ssm, hybrid, encdec and vlm families run with their extra inputs:
+random encoder frames (whisper) and vision embeddings over a real
+(3, B, S) M-RoPE grid (qwen2-vl); the Mamba2 units are in
+``tests/test_torch_ssm.py``.
 
 Tolerances: float32 results within 1e-4 absolute (the two sides differ
 only in the order of float32 sums; the logits are of order 1) and routes
@@ -31,13 +35,13 @@ from repro.models import moe as jmoe
 from repro.models import rope as jrope
 from repro.models.common import NO_SHARD as JNO_SHARD
 from repro_torch.configs import registry
-from repro_torch.models import attention, layers, lm, mla, moe, rope
+from repro_torch.models import attention, encdec, layers, lm, mla, moe, rope
 from repro_torch.models.common import NO_SHARD, layer
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 
-SERVED = ("mixtral-8x22b", "deepseek-v2-lite-16b", "minitron-4b", "qwen1.5-32b", "qwen1.5-110b", "gemma3-4b")
+SERVED = tuple(jregistry.ARCHS)  # all ten archs, every model family
 DENSE = ("minitron-4b", "qwen1.5-32b", "qwen1.5-110b", "gemma3-4b")
-WAITING = ("whisper-tiny", "mamba2-370m", "qwen2-vl-7b", "zamba2-2.7b")
+FAMILIES = ("mamba2-370m", "zamba2-2.7b", "whisper-tiny", "qwen2-vl-7b")  # ssm, hybrid, encdec, vlm
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -96,8 +100,50 @@ def normal(shape, seed: int, dtype: str = "f32"):
 
 
 def cache_leaves(cache) -> list:
-    layers_ = cache["layers"]
-    return list(layers_.values()) if isinstance(layers_, dict) else list(layers_)
+    """Every tensor of a cache, in the order ``jax.tree.leaves`` gives the
+    reference's (dict keys sorted)."""
+    return jax.tree.leaves(cache)
+
+
+def model_batch(cfg, B: int, S: int, seed: int = 1) -> dict:
+    """Tokens, and the family's extra inputs, as numpy: random encoder
+    frames (encdec); vision embeddings over the first positions with their
+    M-RoPE grid (vlm): t = 0 and (h, w) over a patch grid of width 4, then
+    text positions equal on all three axes, which decode's broadcast
+    position continues."""
+    batch = {"tokens": tokens(cfg, B, S, seed)}
+    g = np.random.default_rng(seed + 100)
+    if cfg.family == "encdec":
+        batch["enc_frames"] = g.standard_normal((B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        V = cfg.vision_tokens
+        batch["vision_embeds"] = g.standard_normal((B, V, cfg.d_model)).astype(np.float32)
+        thw = np.broadcast_to(np.arange(S), (3, B, S)).copy()
+        thw[0, :, :V], thw[1, :, :V], thw[2, :, :V] = 0, np.arange(V) // 4, np.arange(V) % 4
+        batch["positions_thw"] = thw.astype(np.int32)
+    return batch
+
+
+def upto(batch: dict, n: int) -> dict:
+    out = dict(batch, tokens=batch["tokens"][:, :n])
+    if "positions_thw" in batch:
+        out["positions_thw"] = batch["positions_thw"][:, :, :n]
+    return out
+
+
+def jax_batch(batch: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def torch_batch(batch: dict, device="cpu") -> dict:
+    return {k: (torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)).to(device)
+            for k, v in batch.items()}
+
+
+def shared_wq(cfg) -> int:
+    """The weights ``param_count()`` leaves out: the hybrid shared block's
+    ``wq`` (a fault of the reference's count, kept by the port's copy)."""
+    return cfg.d_model * cfg.num_heads * cfg.resolved_head_dim if cfg.is_hybrid else 0
 
 
 # ------------------------------------------------------------ configs, init
@@ -120,13 +166,28 @@ def test_deepseek_full_width_is_the_published_config():
 @pytest.mark.parametrize("arch", SERVED)
 def test_init_builds_the_reference_tree(arch):
     cfg = registry.get_config(arch, smoke=True)
-    got = lm.init(cfg, torch.Generator().manual_seed(0))
+    got = registry.get_model_api(cfg).init(cfg, torch.Generator().manual_seed(0))
     want = params_from_numpy(jax.tree.map(np.asarray, jax_params(arch)), "cpu")
     flat = lambda tree: {  # noqa: E731
         path: (tuple(t.shape), t.dtype) for path, t in jax.tree_util.tree_flatten_with_path(tree)[0]
     }
     assert flat(got) == flat(want)
-    assert lm.counted_params(got) == cfg.param_count()
+    assert lm.counted_params(got) == lm.counted_params(want) == cfg.param_count() + shared_wq(cfg)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_full_width_tree_counts_param_count_and_the_shared_wq(arch):
+    """At full width, from the reference tree's shapes alone: the counted
+    weights are ``param_count()``, plus 2560^2 = 6,553,600 for Zamba2."""
+    cfg = registry.get_config(arch)
+    jc = jregistry.get_config(arch)
+    shapes = jax.eval_shape(lambda k: jregistry.get_model_api(jc).init(k, jc), jax.random.PRNGKey(0))
+    counted = sum(
+        int(np.prod(x.shape)) for path, x in jax.tree_util.tree_flatten_with_path(shapes)[0]
+        if path[-1].key not in lm._UNCOUNTED
+    )
+    assert counted == cfg.param_count() + shared_wq(cfg)
+    assert shared_wq(cfg) == (6_553_600 if arch == "zamba2-2.7b" else 0)
 
 
 def test_init_is_seeded_truncated_fan_in():
@@ -140,18 +201,22 @@ def test_init_is_seeded_truncated_fan_in():
     assert abs(float(wi.std()) / std - 0.8796) < 0.03  # a ±2σ truncated normal's std
 
 
-@pytest.mark.parametrize("arch", WAITING)
-def test_unported_families_raise_naming_the_roadmap(arch):
-    cfg = registry.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unknown_family_raises():
+    cfg = registry.get_config("gemma3-4b", smoke=True).replace(family="rnn")
+    with pytest.raises(NotImplementedError, match="unknown family 'rnn'"):
         registry.get_model_api(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="unknown family"):
         lm.init(cfg, torch.Generator())
 
 
 @pytest.mark.parametrize("arch", SERVED)
 def test_get_model_api_is_the_port_lm(arch):
-    assert registry.get_model_api(registry.get_config(arch, smoke=True)) is lm
+    """The port's ``lm``, or ``encdec`` for whisper, as the reference picks."""
+    cfg = registry.get_config(arch, smoke=True)
+    want = encdec if cfg.family == "encdec" else lm
+    assert registry.get_model_api(cfg) is want
+    ref = jregistry.get_model_api(jregistry.get_config(arch, smoke=True))
+    assert ref.__name__.split(".")[-1] == want.__name__.split(".")[-1]
 
 
 def test_params_from_numpy_keeps_bfloat16_bits():
@@ -219,6 +284,14 @@ def test_rope_and_mrope_match_reference(dtype):
     got = rope.apply_mrope(xt, torch.from_numpy(thw), (4, 2, 2), 1e6)
     assert err(got, jrope.apply_mrope(xj, jnp.asarray(thw), (4, 2, 2), 1e6)) <= tol
     assert err(rope.sinusoidal_positions(10, 8), jrope.sinusoidal_positions(10, 8)) <= F32_TOL
+
+
+@pytest.mark.parametrize("d_model", (64, 384))
+def test_sinusoid_rows_equal_the_table_bit_for_bit(d_model):
+    """Whisper's decode step computes only the row at its position."""
+    table = rope.sinusoidal_positions(32776, d_model)
+    for pos in (0, 1, 17, 255, 1499, 4096, 32775):
+        assert torch.equal(rope.sinusoidal_positions(1, d_model, start=pos)[0], table[pos])
 
 
 @pytest.mark.parametrize("norm", ("rmsnorm", "layernorm"))
@@ -383,19 +456,21 @@ def test_capacity_is_the_reference_arithmetic(num_assignments, cf):
 def _model_run(arch: str, dtype: str = "f32", B: int = 2, S: int = 24, **kw):
     """forward, prefill on S - 2 tokens and two decode steps, on both sides."""
     jc, tc = cfgs(arch, dtype, **kw)
-    japi = jregistry.get_model_api(jc)
+    japi, tapi = jregistry.get_model_api(jc), registry.get_model_api(tc)
     pj, pt = both_params(arch)
-    toks = tokens(jc, B, S)
-    out = {"forward": (lm.forward(pt, {"tokens": _t(toks)}, tc)[0], japi.forward(pj, {"tokens": jnp.asarray(toks)}, jc, JNO_SHARD)[0])}
+    batch = model_batch(jc, B, S)
+    toks = batch["tokens"]
+    out = {"forward": (tapi.forward(pt, torch_batch(batch), tc)[0],
+                       japi.forward(pj, jax_batch(batch), jc, JNO_SHARD)[0])}
     cj = japi.init_cache(jc, B, S + 4)
-    ct = lm.init_cache(tc, B, S + 4, device="cpu")
-    lj, cj = japi.prefill(pj, {"tokens": jnp.asarray(toks[:, : S - 2])}, jc, JNO_SHARD, cj)
-    lt, ct = lm.prefill(pt, {"tokens": _t(toks[:, : S - 2])}, tc, NO_SHARD, ct)
+    ct = tapi.init_cache(tc, B, S + 4, device="cpu")
+    lj, cj = japi.prefill(pj, jax_batch(upto(batch, S - 2)), jc, JNO_SHARD, cj)
+    lt, ct = tapi.prefill(pt, torch_batch(upto(batch, S - 2)), tc, NO_SHARD, ct)
     out["prefill"] = (lt, lj)
     out["prefill_cache"] = (cache_leaves(ct), jax.tree.leaves(cj))
     for pos in (S - 2, S - 1):
         lj, cj = japi.decode_step(pj, jnp.asarray(toks[:, pos : pos + 1]), jc, JNO_SHARD, cj, pos)
-        lt, ct = lm.decode_step(pt, _t(toks[:, pos : pos + 1]), tc, NO_SHARD, ct, pos)
+        lt, ct = tapi.decode_step(pt, _t(toks[:, pos : pos + 1]), tc, NO_SHARD, ct, pos)
         out[f"decode@{pos}"] = (lt, lj)
     out["decode_cache"] = (cache_leaves(ct), jax.tree.leaves(cj))
     return out, toks
@@ -454,16 +529,73 @@ def test_port_prefill_decode_matches_its_forward(arch):
     """The reference's serve-consistency test over the port alone."""
     _, tc = cfgs(arch)
     _, pt = both_params(arch)
+    api = registry.get_model_api(tc)
     B, S = 2, 24
-    toks = _t(tokens(tc, B, S))
-    logits, _ = lm.forward(pt, {"tokens": toks}, tc)
-    cache = lm.init_cache(tc, B, S + 4, device="cpu")
-    last, cache = lm.prefill(pt, {"tokens": toks[:, : S - 2]}, tc, NO_SHARD, cache)
+    batch = model_batch(tc, B, S)
+    toks = _t(batch["tokens"])
+    logits, _ = api.forward(pt, torch_batch(batch), tc)
+    cache = api.init_cache(tc, B, S + 4, device="cpu")
+    last, cache = api.prefill(pt, torch_batch(upto(batch, S - 2)), tc, NO_SHARD, cache)
     errs = [err(last, logits[:, S - 3])]
     for pos in (S - 2, S - 1):
-        lg, cache = lm.decode_step(pt, toks[:, pos : pos + 1], tc, NO_SHARD, cache, pos)
+        lg, cache = api.decode_step(pt, toks[:, pos : pos + 1], tc, NO_SHARD, cache, pos)
         errs.append(err(lg, logits[:, pos]))
     assert max(errs) < 2e-2, errs
+
+
+@pytest.mark.parametrize("arch", ("mamba2-370m", "zamba2-2.7b"))
+def test_ssm_prefill_past_two_chunks_matches_reference(arch):
+    """A 75-token prompt over chunks of 32: the inter-chunk recurrence
+    and the padded tail, then decode from the states it leaves."""
+    out, _ = _model_run(arch, S=77)
+    for what, (got, want) in out.items():
+        pairs = zip(got, want) if what.endswith("cache") else [(got, want)]
+        for g, w in pairs:
+            assert err(g, w) <= F32_TOL, what
+
+
+def test_one_token_ssm_prefill_takes_the_decode_branch_as_the_reference():
+    jc, tc = cfgs("mamba2-370m")
+    pj, pt = both_params("mamba2-370m")
+    toks = tokens(jc, 2, 1)
+    japi = jregistry.get_model_api(jc)
+    lj, cj = japi.prefill(pj, {"tokens": jnp.asarray(toks)}, jc, JNO_SHARD, japi.init_cache(jc, 2, 4))
+    lt, ct = lm.prefill(pt, {"tokens": _t(toks)}, tc, NO_SHARD, lm.init_cache(tc, 2, 4, device="cpu"))
+    assert err(lt, lj) <= F32_TOL
+    assert all(err(g, w) <= F32_TOL for g, w in zip(cache_leaves(ct), jax.tree.leaves(cj)))
+
+
+def test_encode_and_cross_cache_match_reference():
+    """Whisper's encoder output, and the cross-attention K/V that prefill
+    computes once and decode reads unchanged."""
+    jc, tc = cfgs("whisper-tiny")
+    japi = jregistry.get_model_api(jc)
+    pj, pt = both_params("whisper-tiny")
+    batch = model_batch(jc, 2, 9)
+    ej = japi.encode(pj, jnp.asarray(batch["enc_frames"]), jc, JNO_SHARD)
+    et = encdec.encode(pt, torch.from_numpy(batch["enc_frames"]), tc, NO_SHARD)
+    assert err(et, ej) <= F32_TOL
+    _, cj = japi.prefill(pj, jax_batch(batch), jc, JNO_SHARD, japi.init_cache(jc, 2, 12))
+    _, ct = encdec.prefill(pt, torch_batch(batch), tc, NO_SHARD, encdec.init_cache(tc, 2, 12, device="cpu"))
+    assert ct["cross"][0].shape == (tc.num_layers, 2, tc.encoder_seq_len, tc.num_kv_heads, tc.resolved_head_dim)
+    for g, w in zip(ct["cross"], cj["cross"]):
+        assert err(g, w) <= F32_TOL
+    _, ct2 = encdec.decode_step(pt, _t(batch["tokens"][:, :1]), tc, NO_SHARD, ct, 9)
+    assert ct2["cross"] is ct["cross"]
+
+
+def test_vlm_forward_with_vision_embeds_and_mrope_matches_reference():
+    """qwen2-vl: the vision embeddings replace the first positions, and
+    M-RoPE reads the (3, B, S) grid: both change the logits."""
+    jc, tc = cfgs("qwen2-vl-7b")
+    pj, pt = both_params("qwen2-vl-7b")
+    batch = model_batch(jc, 2, 20)
+    want = jregistry.get_model_api(jc).forward(pj, jax_batch(batch), jc, JNO_SHARD)[0]
+    got = lm.forward(pt, torch_batch(batch), tc)[0]
+    assert err(got, want) <= F32_TOL
+    plain = lm.forward(pt, {"tokens": _t(batch["tokens"])}, tc)[0]
+    no_grid = lm.forward(pt, torch_batch({k: v for k, v in batch.items() if k != "positions_thw"}), tc)[0]
+    assert err(plain, got) > 1e-3 and err(no_grid, got) > 1e-3
 
 
 def test_mla_absorbed_equals_expanded_in_the_model():
@@ -479,18 +611,22 @@ def test_mla_absorbed_equals_expanded_in_the_model():
     assert err(outs[0], outs[1]) <= 1e-3
 
 
-@pytest.mark.parametrize("arch", ("mixtral-8x22b", "qwen1.5-32b", "deepseek-v2-lite-16b"))
+@pytest.mark.parametrize(
+    "arch", ("mixtral-8x22b", "qwen1.5-32b", "deepseek-v2-lite-16b", "mamba2-370m", "zamba2-2.7b", "whisper-tiny")
+)
 def test_prefill_and_decode_leave_the_given_cache_alone(arch):
     _, tc = cfgs(arch)
     _, pt = both_params(arch)
-    toks = _t(tokens(tc, 2, 8))
-    cache0 = lm.init_cache(tc, 2, 12, device="cpu")
+    api = registry.get_model_api(tc)
+    batch = torch_batch(model_batch(tc, 2, 8))
+    toks = batch["tokens"]
+    cache0 = api.init_cache(tc, 2, 12, device="cpu")
     snap = [t.clone() for t in cache_leaves(cache0)]
-    _, cache1 = lm.prefill(pt, {"tokens": toks[:, :6]}, tc, NO_SHARD, cache0)
+    _, cache1 = api.prefill(pt, dict(batch, tokens=toks[:, :6]), tc, NO_SHARD, cache0)
     assert all(torch.equal(a, b) for a, b in zip(cache_leaves(cache0), snap))
     snap1 = [t.clone() for t in cache_leaves(cache1)]
-    a, _ = lm.decode_step(pt, toks[:, 6:7], tc, NO_SHARD, cache1, 6)
-    b, _ = lm.decode_step(pt, toks[:, 6:7], tc, NO_SHARD, cache1, 6)
+    a, _ = api.decode_step(pt, toks[:, 6:7], tc, NO_SHARD, cache1, 6)
+    b, _ = api.decode_step(pt, toks[:, 6:7], tc, NO_SHARD, cache1, 6)
     assert torch.equal(a, b)
     assert all(torch.equal(x, y) for x, y in zip(cache_leaves(cache1), snap1))
 

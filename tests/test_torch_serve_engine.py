@@ -32,7 +32,8 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import Request, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-SERVED = ("mixtral-8x22b", "deepseek-v2-lite-16b", "minitron-4b", "qwen1.5-32b", "qwen1.5-110b", "gemma3-4b")
+SERVED = tuple(jregistry.ARCHS)  # all ten archs, every model family
+FAMILIES = ("mamba2-370m", "zamba2-2.7b", "whisper-tiny", "qwen2-vl-7b")  # ssm, hybrid, encdec, vlm
 # distinct prompt lengths, and a different token budget per request
 LENS = (5, 17, 3, 11)
 NEW = (6, 4, 6, 5)
@@ -61,7 +62,7 @@ def _prompts(vocab: int, lens, seed: int = 0) -> list[np.ndarray]:
 
 
 def _engine(tc, tp, max_len: int = 64) -> ServeEngine:
-    return ServeEngine(tc, tp, lm, max_len=max_len, device="cpu")
+    return ServeEngine(tc, tp, registry.get_model_api(tc), max_len=max_len, device="cpu")
 
 
 @pytest.mark.parametrize("arch", SERVED)
@@ -117,7 +118,7 @@ def test_empty_batch_and_single_request():
     assert list(out) == [7] and len(out[7]) == 3
 
 
-@pytest.mark.parametrize("arch", ("deepseek-v2-lite-16b", "mixtral-8x22b", "qwen1.5-110b"))
+@pytest.mark.parametrize("arch", ("deepseek-v2-lite-16b", "mixtral-8x22b", "qwen1.5-110b") + FAMILIES)
 def test_generate_counts_one_pair_sort_and_one_count_rank_a_moe_layer_a_step(arch, monkeypatch):
     _, tc, _, tp = _setup(arch)
     tc = tc.replace(dtype=torch.bfloat16)  # the served dtype
@@ -173,9 +174,10 @@ def _env():
     return env
 
 
-def test_cli_serves_the_smoke_model_on_the_cpu():
+@pytest.mark.parametrize("arch", ("deepseek-v2-lite-16b",) + FAMILIES)
+def test_cli_serves_the_smoke_model_on_the_cpu(arch):
     r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "deepseek-v2-lite-16b", "--smoke",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke",
          "--device", "cpu", "--new-tokens", "6"],
         env=_env(), capture_output=True, text=True, timeout=300,
     )
@@ -186,11 +188,13 @@ def test_cli_serves_the_smoke_model_on_the_cpu():
 
 
 def test_cli_refuses_an_unported_family_and_a_missing_card():
+    """Every arch of the registry is served now; an arch outside it is
+    refused, and so is a missing card."""
     r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mamba2-370m", "--smoke", "--device", "cpu"],
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "rwkv-7b", "--smoke", "--device", "cpu"],
         env=_env(), capture_output=True, text=True, timeout=300,
     )
-    assert r.returncode != 0 and "ROADMAP" in r.stderr
+    assert r.returncode != 0 and "invalid choice: 'rwkv-7b'" in r.stderr
     if not torch.cuda.is_available():
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma3-4b", "--smoke"],
