@@ -99,12 +99,33 @@ no result line):
    (whisper) and with 1,024 random vision embeddings on a 32 x 32 patch
    grid of M-RoPE positions at S = 1,100 (qwen2-vl); every time beside
    the card's name and power limit;
-11. a ``kernels`` JSON line with each kernel's launches on its path
+11. training on the card (the card's memory back after phase 10): (a)
+   DeepSeek-V2-Lite-16B at full width, 4 of its 27 layers (float32
+   parameters, gradients and AdamW moments of all 27 take 241.6 GiB), a
+   batch of 2 x 4,096 tokens (``train_4k``'s length), trained 6 steps
+   through ``Trainer(device="cuda")`` with remat and the ``sorted`` MoE
+   dispatch: finite losses, the last below the first, exactly 8 launches
+   of K1 a step (4 MoE layers, forward and remat recompute); step ms,
+   tokens/s, max allocated, and a seventh step under the profiler for the
+   card's busy share and top kernels; (b) in a process of its own with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and deterministic algorithms, one
+   layer's loss and every gradient leaf with the ``sorted`` (K1) and the
+   ``argsort`` dispatch bit for bit; K1 timed at the training shape
+   (49,152 ids, 64 buckets) beside its plain version and
+   ``torch.bincount`` + a stable ``torch.sort``; (c) ``python -m
+   repro_torch.launch.train --arch mamba2-370m --steps 3`` at full width
+   in a subprocess; (d) mamba2-370m trained 3 steps with a checkpoint at
+   step 2, then resumed by a second ``Trainer`` at step 2 with the data
+   at step 2, its loss equal to the first run's bit for bit;
+12. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
-   7, 8, 9 and 10; the untagged pair kernel and the pair row kernel have
-   no caller on any path and are checked in phase 2 only); the launches
-   of single requests are printed on their own lines.
+   7, 8, 9, 10 and 11; the untagged pair kernel and the pair row kernel
+   have no caller on any path and are checked in phase 2 only), each
+   kernel's device time and launches a call (the script fails if the
+   profiler gave none after three sessions), and K1's times at the
+   training shape; the launches of single requests are printed on their
+   own lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of
 JAX or of the JAX package ``repro``.
@@ -159,6 +180,10 @@ from repro_torch.launch.serve import synthetic_requests  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm  # noqa: E402
 from repro_torch.models.common import NO_SHARD, layer, tree_leaves  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
+from repro_torch.train import Trainer  # noqa: E402
+from repro_torch.train.train_step import make_grad_fn  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
@@ -461,15 +486,19 @@ def bcr_ids(n: int, nb: int, gen: np.random.Generator) -> torch.Tensor:
     return torch.from_numpy(gen.integers(0, nb, n).astype(np.int32)).to(DEV)
 
 
-def bcr_profile(fn, reps: int = 5) -> tuple["float | None", "int | None"]:
+def bcr_profile(fn, reps: int = 5, attempts: int = 3) -> tuple["float | None", "int | None"]:
     """Device time of one call (its kernel and the memset of its status
-    words; median of ``reps`` calls) and its kernel launches."""
+    words; median of ``reps`` calls) and its kernel launches; a profiler
+    session that lost the calls' markers is traced again, up to
+    ``attempts`` sessions."""
     fn()
     torch.cuda.synchronize()
-    calls = devtrace.call_events(fn, reps)
-    if not calls:
-        return None, None
-    return float(np.median([sum(t for _, t in c) for c in calls])), max(sum("bcr" in n for n, _ in c) for c in calls)
+    for _ in range(attempts):
+        calls = devtrace.call_events(fn, reps)
+        if calls:
+            return (float(np.median([sum(t for _, t in c) for c in calls])),
+                    max(sum("bcr" in n for n, _ in c) for c in calls))
+    return None, None
 
 
 def bcr_kernel_checks(gen: np.random.Generator) -> dict:
@@ -560,7 +589,7 @@ def pair_keys(shape, heavy_ties: bool, gen: np.random.Generator) -> torch.Tensor
     return random_keys(shape, torch.int32, gen)
 
 
-def launch_profile(label: str, fn, kind: str, reps: int = 5) -> dict:
+def launch_profile(label: str, fn, kind: str, reps: int = 5, attempts: int = 3) -> dict:
     """Device time of each kernel launch of one call of ``fn`` (``reps``
     calls traced in one profiler session, median over the calls), summed
     by the launch kinds of a tiered sort, whose kernel names start with
@@ -569,14 +598,20 @@ def launch_profile(label: str, fn, kind: str, reps: int = 5) -> dict:
     shuffles, shared memory), the later chunk launches (one stage's
     distances below the chunk each) and the device windows (several longer
     distances each, through device memory).  Every call must show the same
-    launches in the same order, else nothing is reported."""
+    launches in the same order; a session that does not (the profiler lost
+    events) is traced again, up to ``attempts`` sessions, else nothing is
+    reported."""
     fn()
     torch.cuda.synchronize()
-    calls = devtrace.call_events(fn, reps) or []
-    calls = [[(n, t) for n, t in c if kind in n] for c in calls]
-    names = [n for n, _ in calls[0]] if calls else []
-    if not names or any([n for n, _ in c] != names for c in calls):
-        print(f"tiers {label}: launches {[len(c) for c in calls]} in {reps} calls, not the same each call")
+    for attempt in range(1, attempts + 1):
+        calls = devtrace.call_events(fn, reps) or []
+        calls = [[(n, t) for n, t in c if kind in n] for c in calls]
+        names = [n for n, _ in calls[0]] if calls else []
+        if names and all([n for n, _ in c] == names for c in calls):
+            break
+        print(f"tiers {label}: launches {[len(c) for c in calls]} in {reps} calls, not the same each call "
+              f"(profiler session {attempt} of {attempts})")
+    else:
         return {}
     ms = np.median(np.array([[t for _, t in c] for c in calls]), axis=0)
     chunk = [t for n, t in zip(names, ms) if f"{kind}chunk" in n]
@@ -1709,13 +1744,13 @@ VLM_CHECK_LEN, VLM_GRID = 1100, 32  # 1,024 vision tokens on a 32 x 32 patch gri
 LEAK_BYTES = 64 << 20  # what a freed model may leave allocated on the card
 
 
-def allocated_back(base: int, label: str) -> None:
+def allocated_back(base: int, label: str, phase: int = 10) -> None:
     """Fail unless the card's allocated memory is back within
     ``LEAK_BYTES`` of ``base``."""
     gc.collect()
     torch.cuda.empty_cache()
     now = torch.cuda.memory_allocated()
-    print(f"  allocated after {label}: {now / 2**20:.1f} MiB (phase 10 started at {base / 2**20:.1f} MiB)")
+    print(f"  allocated after {label}: {now / 2**20:.1f} MiB (phase {phase} started at {base / 2**20:.1f} MiB)")
     if now - base > LEAK_BYTES:
         fail(f"{label}: {(now - base) / 2**20:.1f} MiB still allocated on the card")
 
@@ -1816,6 +1851,232 @@ def model_families() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------- phase 11
+TRAIN_ARCH = "deepseek-v2-lite-16b"
+# Full width, depth cut from 27 to 4: float32 parameters, gradients and
+# AdamW's m and v of all 27 layers take 241.6 GiB.  train_4k's 4,096
+# tokens a sequence, its batch cut from 256 to 2.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 4096, 2, 6
+TRAIN_MEMORY_LIMIT = 75 << 30  # max allocated past this: cut the batch to 1
+BF16_OPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+RESUME_ARCH = "mamba2-370m"
+
+
+def train_ops(cfg, tokens: int) -> tuple[float, float]:
+    """Matmul operations of one remat train step (forward, backward, and
+    the layers' forward again), as (bf16, float32): 2·N·D a forward pass
+    over the weights each token uses (the routed experts at the dispatch
+    buffer's E·C rows) and 4·N·D for its backward, in bf16; QKᵀ and P·V
+    over every (query, key) pair the chunked attention computes (all S² of
+    them), on float32 operands."""
+    m, a = cfg.moe, cfg.mla
+    d, H, L = cfg.d_model, cfg.num_heads, cfg.num_layers
+    attn_w = d * H * (a.qk_nope_head_dim + a.qk_rope_head_dim) + d * (a.kv_lora_rank + a.qk_rope_head_dim) \
+        + a.kv_lora_rank * H * (a.qk_nope_head_dim + a.v_head_dim) + H * a.v_head_dim * d
+    shared = 3 * d * m.shared_d_ff * m.num_shared_experts + d * m.num_experts
+    routed_rows = m.num_experts * moe.capacity(tokens * m.num_experts_per_tok, cfg)
+    layer = 2 * (attn_w + shared) * tokens + 2 * 3 * d * m.expert_d_ff * routed_rows
+    scores = 2 * TRAIN_BATCH * TRAIN_SEQ * TRAIN_SEQ * H * (a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim)
+    unembed = 2 * d * cfg.vocab_size * tokens
+    return 3 * (L * layer + unembed) + L * layer, 4 * L * scores
+
+
+def train_main(card: str) -> dict:
+    """(a) DeepSeek-V2-Lite at full width, 4 layers, trained 6 steps
+    through ``Trainer(device="cuda")``: finite, falling losses, 8 launches
+    of K1 a step (4 MoE layers, forward and remat recompute); then one
+    more step under the profiler for the card's busy share."""
+    cfg = registry.get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
+    full = registry.get_config(TRAIN_ARCH)
+    state_gib = 4 * 4 * full.param_count() / 2**30
+    print(f"phase 11 (a) reduced: depth {full.num_layers} -> {TRAIN_LAYERS} layers (float32 parameters, gradients, "
+          f"m and v of the full depth: {state_gib:.1f} GiB of counted weights alone); batch 256 -> {TRAIN_BATCH} "
+          f"(train_4k's {TRAIN_SEQ} tokens a sequence); widths as published")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        run = RunConfig(model=cfg, shape=ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"), warmup_steps=1,
+                        total_steps=TRAIN_STEPS, checkpoint_every=0, checkpoint_dir=ckpt)
+        tr = Trainer(cfg, run, registry.get_model_api(cfg), device=DEV)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        leaves = tree_leaves(tr.state["params"])
+        n = lm.counted_params(tr.state["params"])
+        if n != cfg.param_count():
+            fail(f"the 4-layer DeepSeek-V2-Lite counts {n} weights, cfg.param_count() {cfg.param_count()}")
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        print(f"  built {n:,} counted weights (cfg.param_count()), {sum(x.numel() for x in leaves):,} in all: "
+              f"{nbytes / 2**30:.2f} GiB of float32 weights and {2 * nbytes / 2**30:.2f} GiB of AdamW moments on "
+              f"the card in {built:.2f} s; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        reset_launches()
+        per_step = []
+        for _ in range(TRAIN_STEPS):
+            before = launch_counts()["bucket_count_rank"]
+            tr.run_steps(1)
+            per_step.append(launch_counts()["bucket_count_rank"] - before)
+        log = tr.metrics_log
+        losses = [m["loss"] for m in log]
+        walls = [m["wall_s"] * 1e3 for m in log]
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"(a) a training loss is not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"(a) the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        if per_step != [2 * TRAIN_LAYERS] * TRAIN_STEPS:
+            fail(f"(a) K1 launched {per_step} times a step, not {2 * TRAIN_LAYERS}")
+        if peak > TRAIN_MEMORY_LIMIT:
+            fail(f"(a) max allocated {peak / 2**30:.2f} GiB passes {TRAIN_MEMORY_LIMIT / 2**30:.0f} GiB: cut the batch")
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        warm = statistics.median(walls[1:])
+        ops16, ops32 = train_ops(cfg, tokens)
+        floor_ms = (ops16 / BF16_OPS_S + ops32 / PEAK_OPS_S) * 1e3
+        print(f"  (a) {TRAIN_STEPS} steps on {card}: losses {[round(x, 4) for x in losses]}; lr "
+              f"{[m['lr'] for m in log]}; grad_norm {[round(m['grad_norm'], 3) for m in log]}; aux "
+              f"{[round(m['aux'], 5) for m in log]}")
+        print(f"  (a) step ms (host clock, synchronised by .item()): {[round(w, 1) for w in walls]}; warm median "
+              f"{warm:.1f} ms, {tokens / warm * 1e3:.0f} tokens/s; max allocated {peak / 2**30:.2f} GiB; K1 launches "
+              f"a step {per_step}; matmul operations a step {ops16 / 1e12:.2f} T bf16 + {ops32 / 1e12:.2f} T float32 "
+              f"(attention), {floor_ms:.1f} ms at the peaks (989 T/s bf16, 67 T/s float32)")
+        busy_share(f"one DeepSeek-V2-Lite train step (4 layers, {TRAIN_BATCH} x {TRAIN_SEQ}) on {card}",
+                   lambda: tr.run_steps(1))
+        total = launch_counts()
+        if total["bucket_count_rank"] != 2 * TRAIN_LAYERS * (TRAIN_STEPS + 1):
+            fail(f"(a) K1 launched {total['bucket_count_rank']} times in {TRAIN_STEPS + 1} steps")
+        del tr, leaves
+    return {k: v for k, v in total.items() if v}
+
+
+def train_dispatch_twins() -> None:
+    """(b), run in a process of its own with ``CUBLAS_WORKSPACE_CONFIG``
+    set and deterministic algorithms on: one step's loss and gradients of
+    DeepSeek-V2-Lite at full width, 1 layer, with the ``sorted`` dispatch
+    (K1) and with ``argsort`` (``torch.sort``), bit for bit."""
+    torch.use_deterministic_algorithms(True)
+    cfg = registry.get_config(TRAIN_ARCH).replace(num_layers=1)
+    run = RunConfig(model=cfg)
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    batch = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEV).next_batch()
+    out = {}
+    for dispatch in ("sorted", "argsort"):
+        c = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+        reset_launches()
+        loss, _, aux, grads = make_grad_fn(c, run, lm)(params, batch)
+        torch.cuda.synchronize()
+        out[dispatch] = loss, aux, grads, launch_counts()["bucket_count_rank"]
+    (l1, a1, g1, n1), (l2, a2, g2, n2) = out["sorted"], out["argsort"]
+    if (n1, n2) != (2, 0):
+        fail(f"(b) K1 launched {n1} times with sorted (want 2: forward and recompute) and {n2} with argsort")
+    if not (torch.equal(bits(l1), bits(l2)) and torch.equal(bits(a1), bits(a2))):
+        fail(f"(b) the sorted and argsort losses differ: {float(l1)!r} {float(l2)!r}")
+    diff = [k for k, (x, y) in enumerate(zip(g1, g2)) if not torch.equal(bits(x), bits(y))]
+    if diff:
+        fail(f"(b) {len(diff)} of {len(g1)} gradient leaves differ between the sorted and argsort dispatches")
+    print(f"  (b) DeepSeek-V2-Lite 1 layer, {TRAIN_BATCH} x {TRAIN_SEQ}: loss {float(l1)!r} and aux {float(a1)!r} "
+          f"with sorted (K1, {n1} launches) and argsort, bit for bit; all {len(g1)} gradient leaves bit for bit "
+          f"under torch.use_deterministic_algorithms(True)")
+
+
+def train_dispatch_times(card: str, row: dict) -> None:
+    """K1 at the training dispatch's shape (6 · 2 · 4096 = 49,152 ids over
+    64 experts) by events and on the device, beside its plain version and
+    ``torch.bincount`` + a stable ``torch.sort``; added to K1's row."""
+    cfg = registry.get_config(TRAIN_ARCH)
+    E, A = cfg.moe.num_experts, cfg.moe.num_experts_per_tok * TRAIN_BATCH * TRAIN_SEQ
+    gen = np.random.default_rng(11)
+    ids = torch.from_numpy(gen.integers(0, E, A).astype(np.int32)).to(DEV)
+    kc, kr = partition_kernel.bucket_count_rank(ids, E)
+    pc, pr = partition_kernel.bucket_count_rank_plain(ids, E)
+    err = max(same(kc, pc, "bucket_count_rank counts at the training shape"),
+              same(kr, pr, "bucket_count_rank ranks at the training shape"))
+    ms = cuda_ms(lambda: partition_kernel.bucket_count_rank(ids, E), reps=21)
+    dev_ms, launches = bcr_profile(lambda: partition_kernel.bucket_count_rank(ids, E))
+    plain = cuda_ms(lambda: partition_kernel.bucket_count_rank_plain(ids, E), reps=5)
+    library = cuda_ms(lambda: (torch.bincount(ids, minlength=E), torch.sort(ids, stable=True)), reps=21)
+    b, by = bound(4 * A + 4 * E + 4 * A, 2 * A)
+    row.update(train_shape=f"{A} ids, B={E}", train_ms=ms, train_device_ms=dev_ms, train_plain_ms=plain,
+               train_library_ms=library, train_bound_ms=b, train_max_abs_err=err)
+    print(f"kernel bucket_count_rank at the training dispatch, A={A} ids, B={E}, on {card}: {ms:.4f} ms by events, "
+          f"device {dev_ms} ms ({launches} kernel launches), plain {plain:.4f} ms, torch.bincount + stable "
+          f"torch.sort {library:.4f} ms, bound {b:.2e} ms ({by}); equal to the plain version")
+
+
+def train_launcher() -> None:
+    """(c) ``python -m repro_torch.launch.train --arch mamba2-370m --steps 3``
+    at full width and depth on the card, in a process of its own."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", RESUME_ARCH, "--steps", "3",
+               "--ckpt-dir", ckpt]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"(c) {' '.join(cmd[1:7])} exited {r.returncode}: {r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    m = re.match(r"loss: (\S+) -> (\S+);", lines[-1]) if lines else None
+    if not m or not all(math.isfinite(float(x)) for x in m.groups()):
+        fail(f"(c) the launcher printed no finite loss: {r.stdout[-2000:]}")
+    print(f"  (c) python -m repro_torch.launch.train --arch {RESUME_ARCH} --steps 3, "
+          f"{time.perf_counter() - t0:.1f} s with the process's start: {' | '.join(lines[-2:])}")
+
+
+def train_resume(card: str) -> None:
+    """(d) mamba2-370m at full width trained 3 steps with a checkpoint
+    every 2 (synchronous saves); a second ``Trainer`` on the directory
+    resumes at step 2 with the data at step 2, and its step-2 loss equals
+    the first trainer's bit for bit."""
+    cfg = registry.get_config(RESUME_ARCH)
+    api = registry.get_model_api(cfg)
+    with tempfile.TemporaryDirectory() as ckpt:
+        run = RunConfig(model=cfg, shape=ShapeConfig("cli", 128, 8, "train"), warmup_steps=1, total_steps=3,
+                        checkpoint_every=2, checkpoint_dir=ckpt)
+        tr = Trainer(cfg, run, api, device=DEV, sync_checkpoints=True)
+        want = [m["loss"] for m in tr.run_steps(3)]
+        saved = tr.ckpt.steps()
+        del tr
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, run, api, device=DEV)
+        resumed = time.perf_counter() - t0
+        step, data_step = int(tr.state["step"]), tr.data.step
+        got = tr.run_steps(1)[0]["loss"]
+        del tr
+    if saved != [2] or (step, data_step) != (2, 2):
+        fail(f"(d) checkpoints {saved}; resumed at step {step} with the data at {data_step}, not 2 and 2")
+    if got != want[2]:
+        fail(f"(d) the resumed step-2 loss {got!r} differs from the first trainer's {want[2]!r}")
+    print(f"  (d) {RESUME_ARCH} 8 x 128 on {card}: losses {want}; resumed from step_2 in {resumed:.2f} s (init and "
+          f"restore) at step 2, data step 2; its step-2 loss {got!r} equals the first run's bit for bit")
+
+
+def model_training(rows: dict) -> dict:
+    """Phase 11: training on the card: (a) DeepSeek-V2-Lite at full width
+    through K1's dispatch, (b) the dispatch's K1 and argsort twins bit for
+    bit (a process of its own) and K1 timed at the training shape, (c) the
+    training launcher, (d) resume from a checkpoint."""
+    t0 = time.perf_counter()
+    card = smi()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    if base > 1 << 30:
+        fail(f"{base / 2**30:.2f} GiB still allocated after phase 10 freed its models")
+    print(f"phase 11 starts with {base / 2**20:.1f} MiB allocated on the card")
+    counts = train_main(card)
+    allocated_back(base, "(a) DeepSeek-V2-Lite training", 11)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    r = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.train_dispatch_twins()"], env=env,
+                       cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    print(r.stdout.strip())
+    if r.returncode != 0:
+        fail(f"(b) the sorted/argsort training twins failed (exit {r.returncode}): {r.stderr[-3000:]}")
+    train_dispatch_times(card, rows["bucket_count_rank"])
+    train_launcher()
+    train_resume(card)
+    allocated_back(base, "(d) mamba2-370m resume", 11)
+    print(f"phase 11 (model training): {time.perf_counter() - t0:.1f} s; launches {counts}; card {card}")
+    return counts
+
+
 def main() -> None:
     preflight()
     rows = kernel_checks()
@@ -1864,6 +2125,10 @@ def main() -> None:
     family_counts.update(model_families())
     if family_counts["sort_pairs_tile_tagged"] == 0:
         fail("sort_pairs_tile_tagged never launched on the model families' path")
+    train_counts = {name: 0 for name in KERNELS}
+    train_counts.update(model_training(rows))
+    if train_counts["bucket_count_rank"] == 0:
+        fail("bucket_count_rank never launched on the training path")
 
     launches = {
         **sort_counts,
@@ -1871,20 +2136,24 @@ def main() -> None:
         "sort_pairs_tile_tagged": pair_counts["sort_pairs_tile_tagged"],
     }
     for name in launches:
-        launches[name] += serve_counts[name] + verify_counts[name] + model_counts[name] + family_counts[name]
+        launches[name] += (serve_counts[name] + verify_counts[name] + model_counts[name] + family_counts[name]
+                           + train_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
             c[name]
             for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, model_counts,
-                      family_counts)
+                      family_counts, train_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "
                  "the kernels line must count that path's launches")
     if set(rows) != set(KERNELS):
         fail(f"kernels not checked in phase 2: {sorted(set(KERNELS) - set(rows))}")
+    unseen = [name for name, r in rows.items() if r.get("device_ms") is None or r.get("launches_per_call") is None]
+    if unseen:
+        fail(f"no device time or launch count from the profiler for {unseen}")
     kernels = []
     for name, r in rows.items():
         kernels.append({
@@ -1894,6 +2163,7 @@ def main() -> None:
             "library_ms": r["library_ms"], "device_ms": r.get("device_ms"),
             "launches_per_call": r.get("launches_per_call"),
             "checked": "phase 2, bit for bit against the plain version",
+            **{k: v for k, v in r.items() if k.startswith("train_")},
         })
     print("card:", smi())
     print(json.dumps({"kernels": kernels}))

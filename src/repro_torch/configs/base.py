@@ -4,13 +4,16 @@ The port's copy of ``repro.configs.base``: ``ModelConfig`` is one wide
 dataclass (MaxText-style) rather than per-family classes, every field has
 a safe default and each arch file sets only what it needs.  ``dtype`` and
 ``param_dtype`` are torch dtypes (bf16 compute, f32 weights);
-``param_count()`` is the reference's, line for line.  The training
-``RunConfig`` waits for the training slice (ROADMAP.md, Queue 1).
+``param_count()`` is the reference's, line for line.  ``RunConfig``
+holds the reference's execution knobs field for field; its mesh axes stay
+the plain names they are until the dist path uses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Any
 
 import torch
@@ -208,3 +211,30 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Execution-level knobs shared by train/serve/dryrun."""
+
+    model: ModelConfig = ModelConfig()
+    shape: ShapeConfig = SHAPES["train_4k"]
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    grad_accum: int = 1  # microbatches per step (activation-memory control)
+    grad_accum_unroll: bool = False  # the reference's cost-calibration loop; the port always loops
+    master_weights: bool = False  # bf16 params + f32 master in opt state
+    seed: int = 0
+    # distribution
+    fsdp_axis: str = "data"
+    tensor_axis: str = "model"
+    batch_axes: tuple[str, ...] = ("pod", "data")
+    # fault tolerance
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    # optimizer comms
+    grad_compression: str = "none"  # none | int8

@@ -6,7 +6,8 @@ fields (its ``PartitionSpec`` helpers wait for the dist path).  Layer
 parameters keep the reference's stacked leading-L layout, and are built
 stacked (``dense_init(..., lead=(L,))``) so that no per-layer copies are
 ever held beside the stack; the reference's ``maybe_scan`` is a Python
-loop over that leading axis (``layer``).
+loop over that leading axis (``unstack`` for the parameters, ``layer``
+for one entry of a stacked cache).
 """
 
 from __future__ import annotations
@@ -95,6 +96,21 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
+def tree_unflatten(tree, leaves) -> object:
+    """``tree``'s structure with ``leaves`` in ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def layer(tree, i: int):
     """Layer ``i`` of a stacked tree: views, so writes reach the stack."""
     return tree_map(lambda a: a[i], tree)
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, from one ``torch.unbind`` of
+    each leaf.  Under autograd the backward of ``unbind`` is one ``stack``
+    a leaf, where ``layer``'s ``a[i]`` would write a zero tensor the size
+    of the whole stack for every layer."""
+    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[i] for p in parts]) for i in range(n)]

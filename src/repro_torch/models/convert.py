@@ -4,7 +4,10 @@
 tuples, as ``jax.tree.map(np.asarray, params)`` gives them) into the
 port's tensors with the same structure, so both packages can compute on
 the same weights.  The port's parameter layout is the reference's, leaf
-for leaf, so this is a plain tree map.
+for leaf, so this is a plain tree map.  ``state_from_numpy`` carries a
+whole train state across the same way (parameters, AdamW's ``m``, ``v``,
+``count`` and ``master``, the step, the int8 error feedback), so both
+packages' trainers can start from one state.
 """
 
 from __future__ import annotations
@@ -32,3 +35,9 @@ def params_from_numpy(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     return tensor_from_numpy(tree, device)
+
+
+def state_from_numpy(tree, device):
+    """The reference's train state (``jax.tree.map(np.asarray, state)``)
+    as the port's: every array a tensor on ``device``, bf16 leaves kept."""
+    return params_from_numpy(tree, device)

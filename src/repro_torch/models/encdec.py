@@ -6,6 +6,10 @@ self-attention stack (LayerNorm + GELU, the whisper flavour).  Decoder:
 token embeddings plus sinusoidal positions → causal self-attention,
 cross-attention to the encoder output, MLP.  The embeddings are tied.
 
+Training: ``forward`` recomputes each encoder and decoder layer's
+activations in the backward under ``cfg.remat``, as the reference's
+``jax.checkpoint`` does.
+
 Serving: ``prefill`` runs the encoder once and caches every decoder
 layer's cross-attention K/V; self-attention uses a padded KV cache.
 
@@ -25,8 +29,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention
-from repro_torch.models.common import NO_SHARD, AxisRules, layer, put, shard, tree_map
-from repro_torch.models.lm import apply_attn_block, init_attn
+from repro_torch.models.common import NO_SHARD, AxisRules, layer, put, shard, tree_map, unstack
+from repro_torch.models.lm import apply_attn_block, init_attn, remat
 from repro_torch.models.rope import sinusoidal_positions
 
 
@@ -69,18 +73,22 @@ def _positions(S: int, cfg, device, start: int = 0) -> torch.Tensor:
 
 
 def encode(params, frames, cfg, rules: AxisRules):
-    """frames: (B, F, d) stub embeddings → the encoder output (B, F, d)."""
+    """frames: (B, F, d) stub embeddings → the encoder output (B, F, d);
+    each layer under ``remat``."""
     x = frames.to(cfg.dtype) + _positions(frames.shape[1], cfg, frames.device)
     x = shard(x, rules, "batch", "seq", None)
     dt = cfg.dtype
-    for i in range(cfg.encoder_layers):
-        blk = layer(params["enc_blocks"], i)
+
+    def body(x, blk):
         h = L.apply_norm(blk["ln1"], x, cfg)
         q, k, v = (torch.einsum("bsd,dhe->bshe", h, blk["attn"][w].to(dt)) for w in ("wq", "wk", "wv"))
         o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk, matmul_bf16=cfg.attn_matmul_bf16)
         x = x + torch.einsum("bshe,hed->bsd", o, blk["attn"]["wo"].to(dt))
         h2 = L.apply_norm(blk["ln2"], x, cfg)
-        x = x + L.apply_mlp(blk["mlp"], h2, cfg, rules)
+        return x + L.apply_mlp(blk["mlp"], h2, cfg, rules)
+
+    for blk in unstack(params["enc_blocks"], cfg.encoder_layers):
+        x = remat(body, cfg, x, blk)
     return L.apply_norm(params["enc_norm"], x, cfg)
 
 
@@ -112,14 +120,18 @@ def _decoder_layer(blk, x, enc_kv, cfg, rules, *, positions, cache_kv=None, pos=
 
 
 def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
-    """Training forward: batch = {'enc_frames': (B,F,d), 'tokens': (B,S)}."""
+    """Training forward: batch = {'enc_frames': (B,F,d), 'tokens': (B,S)}.
+    Every encoder and decoder layer runs under ``remat``."""
     enc_out = encode(params, batch["enc_frames"], cfg, rules)
     tokens = batch["tokens"]
     x = L.embed_tokens(params["embedding"], tokens, cfg, rules) + _positions(tokens.shape[1], cfg, tokens.device)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for i in range(cfg.num_layers):
-        blk = layer(params["dec_blocks"], i)
-        x, _ = _decoder_layer(blk, x, _enc_kv(blk, enc_out, cfg), cfg, rules, positions=positions)
+
+    def body(x, blk):
+        return _decoder_layer(blk, x, _enc_kv(blk, enc_out, cfg), cfg, rules, positions=positions)[0]
+
+    for blk in unstack(params["dec_blocks"], cfg.num_layers):
+        x = remat(body, cfg, x, blk)
     logits = L.unembed(params["embedding"], L.apply_norm(params["final_norm"], x, cfg), cfg, rules)
     return logits, torch.zeros((), dtype=torch.float32, device=tokens.device)
 

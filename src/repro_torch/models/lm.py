@@ -8,7 +8,9 @@ after every ``hybrid_period`` of them (``hybrid``, zamba2).  The
 ``encdec`` family is ``repro_torch.models.encdec``.  Layers keep the
 reference's stacked leading-L parameter layout and run in a Python loop
 over that axis (the reference's ``lax.scan``); each layer's window and
-rope theta ride along as Python values.
+rope theta ride along as Python values.  ``forward``, the training path,
+recomputes each layer's activations in the backward under ``cfg.remat``
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
 API (plain functions on tensors; the device is that of the parameters):
   init(cfg, generator)                           → params
@@ -26,6 +28,7 @@ Writes are clamped into the cache as ``dynamic_update_slice`` clamps them.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import check_family
@@ -34,7 +37,7 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import RING_INVALID, attention
-from repro_torch.models.common import NO_SHARD, AxisRules, const_init, dense_init, layer, put, shard, tree_map
+from repro_torch.models.common import NO_SHARD, AxisRules, const_init, dense_init, layer, put, shard, tree_map, unstack
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 
@@ -225,11 +228,12 @@ def counted_params(params) -> int:
 
 
 def _layers(params, cfg):
-    """(layer params, window, rope theta) of every layer, in order."""
+    """(layer params, window, rope theta) of every layer, in order; the
+    layers are views into the stack, from one ``unstack``."""
     tg = cfg.rope_theta_global or cfg.rope_theta
-    for i in range(cfg.num_layers):
+    for i, blk in enumerate(unstack(params["blocks"], cfg.num_layers)):
         w = cfg.layer_window(i)
-        yield layer(params["blocks"], i), w, (tg if w == 0 else cfg.rope_theta)
+        yield blk, w, (tg if w == 0 else cfg.rope_theta)
 
 
 def _embed_in(params, batch, cfg, rules):
@@ -255,8 +259,20 @@ def _store(dst: dict, src: dict) -> None:
 
 
 # ==================================================================== forward
+def remat(fn, cfg, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``cfg.remat`` and autograd is recording: the reference's
+    ``jax.checkpoint`` around a layer's body."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
-    """Training forward: returns (logits (B,S,V), aux_loss)."""
+    """Training forward: returns (logits (B,S,V), aux_loss).
+
+    Each layer's body runs under ``remat``; the hybrid family's shared
+    block stays outside it, as in the reference."""
     check_family(cfg)
     tokens = batch["tokens"]
     x = x0 = _embed_in(params, batch, cfg, rules)
@@ -264,9 +280,14 @@ def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
     positions_thw = batch.get("positions_thw")
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, (blk, w, th) in enumerate(_layers(params, cfg)):
-        x, aux, _ = apply_block(
-            blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
-        )
+
+        def body(x, aux, blk=blk, w=w, th=th):
+            x, aux, _ = apply_block(
+                blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
+            )
+            return x, aux
+
+        x, aux = remat(body, cfg, x, aux)
         if _shared_after(cfg, i) is not None:
             x, _ = apply_shared_block(params["shared"], x, x0, cfg, rules, positions=positions)
     return _logits(params, x, cfg, rules), aux

@@ -1,0 +1,73 @@
+"""AdamW over trees of tensors: the port's copy of ``repro.optim.adamw``.
+
+The reference's update is functional and jitted with its buffers donated,
+so it never holds two copies of the parameters.  The port's counterpart
+updates each leaf in place under ``torch.no_grad()``: parameters, ``m``
+and ``v`` are written where they lie, and each gradient leaf's buffer is
+reused for that leaf's step.  Peak memory therefore stays at parameters +
+gradients + moments, plus one leaf.  The reference's
+``opt_state_specs`` (the moments' ``PartitionSpec``s) waits for the dist
+path: without a mesh nothing is sharded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.common import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def adamw_init(params) -> dict:
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+    device = tree_leaves(params)[0].device
+    return {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)))
+
+
+def adamw_update(params, grads, state: dict, lr: torch.Tensor, cfg: AdamWConfig = AdamWConfig()) -> dict:
+    """One AdamW step, in place: ``params``, ``state["m"]``, ``state["v"]``
+    and ``state["count"]`` are updated where they lie.  The gradients are
+    consumed: each float32 gradient leaf holds its update afterwards.
+    Returns the metrics ``grad_norm`` and ``clip_scale``."""
+    with torch.no_grad():
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        state["count"].add_(1)
+        count = state["count"].to(torch.float32)
+        b1c = 1.0 - cfg.b1 ** count
+        b2c = 1.0 - cfg.b2 ** count
+        flat = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]))
+        for p, g, m, v in flat:
+            # g is this leaf's only scratch: g·scale, then the step
+            g = g.to(torch.float32).contiguous().mul_(scale)
+            m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+            v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+            denom = torch.div(v, b2c).sqrt_().add_(cfg.eps)
+            step = torch.div(m, b1c, out=g).div_(denom)
+            del denom
+            p32 = p.to(torch.float32)
+            step.add_(p32, alpha=cfg.weight_decay)
+            if p32 is p:
+                p.sub_(step.mul_(lr))
+            else:
+                p.copy_(p32.sub_(step.mul_(lr)))
+    return {"grad_norm": gnorm, "clip_scale": scale}
+

@@ -577,3 +577,68 @@ def test_cuda_ssd_chunked_equals_the_sequential_update(cuda_device):
     y_seq = torch.stack(ys, 1)
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
     assert rel(y, y_seq) <= 1e-3 and rel(final, st) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SERVED)
+def test_cuda_smoke_train_step_matches_the_cpu(arch, cuda_device):
+    """One train step of the smoke config in float32 (no TF32) on the card
+    and on the CPU, from the same seeded weights and batch, at the peak lr
+    (no warmup): the metrics within 1e-4 of ``max(1, |value|)``; every
+    parameter within ``2·lr`` (AdamW's first step moves an entry by
+    ``lr·g/(|g|+ε)``, whose sign and size are rounding noise where the
+    gradient is near zero) plus 1e-6 of the leaf's largest magnitude, and
+    all but 1 % of the model's entries within 1 % of ``lr`` plus that.
+    With remat, K1 launches twice a MoE layer."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = registry.get_config(arch, smoke=True).replace(dtype=torch.float32)
+    api = registry.get_model_api(cfg)
+    lr = 3e-4
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 32, 2, "train"), learning_rate=lr, warmup_steps=0, total_steps=4)
+    cpu = init_train_state(torch.Generator().manual_seed(0), cfg, run, api)
+    card = tree_map(lambda t: t.to(cuda_device, copy=True), cpu)
+    step = make_train_step(cfg, run, api)
+    batch = SyntheticLMData(cfg, 2, 32, seed=0).next_batch()
+    _, want = step(cpu, batch)
+    reset_launches()
+    _, got = step(card, tree_map(lambda t: t.to(cuda_device), batch))
+    assert launch_counts()["bucket_count_rank"] == (2 * cfg.num_layers if cfg.is_moe else 0)
+    for k, w in want.items():
+        assert abs(float(got[k]) - float(w)) <= 1e-4 * max(1.0, abs(float(w))), k
+    outside = total = 0
+    for a, b in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])):
+        err, scale = (a.cpu() - b).abs(), float(b.abs().max())
+        assert float(err.max()) <= 2 * lr + 1e-6 * scale
+        outside += int((err > 1e-2 * lr + 1e-6 * scale).sum())
+        total += err.numel()
+    assert outside <= 0.01 * total
+
+
+@pytest.mark.cuda
+def test_cuda_checkpointer_round_trips_card_tensors(cuda_device, tmp_path):
+    """Leaves on the card (float32, bf16, int32, bool) saved and restored
+    onto the card bit for bit."""
+    from repro_torch.ckpt.checkpointer import Checkpointer
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    tree = {
+        "w": torch.randn((64, 33), generator=g, device=cuda_device),
+        "h": torch.randn((5, 7), generator=g, device=cuda_device).to(torch.bfloat16),
+        "n": [torch.arange(9, dtype=torch.int32, device=cuda_device), torch.tensor([True, False], device=cuda_device)],
+    }
+    ck = Checkpointer(str(tmp_path), keep=1)
+    ck.save(4, tree, extra={"data": {"seed": 0, "step": 4}}, async_save=True)
+    tree["w"].add_(1.0)  # the save copied the leaves before returning
+    ck.wait()
+    out, extra = ck.restore(4, {"w": None, "h": None, "n": [None, None]}, device=cuda_device)
+    assert extra == {"data": {"seed": 0, "step": 4}}
+    assert torch.equal(out["w"] + 1.0, tree["w"]) and out["w"].device.type == cuda_device.type
+    assert out["h"].dtype == torch.bfloat16 and torch.equal(out["h"].view(torch.int16), tree["h"].view(torch.int16))
+    assert torch.equal(out["n"][0], tree["n"][0]) and torch.equal(out["n"][1], tree["n"][1])

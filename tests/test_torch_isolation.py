@@ -34,6 +34,7 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import repro_torch.configs.registry, repro_torch.models.lm, repro_torch.models.convert\n"
         "import repro_torch.models.ssm, repro_torch.models.encdec\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.train, repro_torch.optim, repro_torch.ckpt, repro_torch.launch.train\n"
         "from repro_torch.configs import registry\n"
         "for arch in registry.ARCHS: registry.get_model_api(registry.get_config(arch))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
