@@ -117,11 +117,28 @@ no result line):
    in a subprocess; (d) mamba2-370m trained 3 steps with a checkpoint at
    step 2, then resumed by a second ``Trainer`` at step 2 with the data
    at step 2, its loss equal to the first run's bit for bit;
-12. a ``kernels`` JSON line with each kernel's launches on its path
+12. the perf gate (``repro_torch.perf``), run between phases 8 and 9:
+   the card calibrated (a 1 GiB device copy, a float32 GEMM at k = 8,192
+   without TF32) and printed beside the H100 data sheet; (a) all eight
+   suites at full scope through ``run_suite(device="cuda")`` at the
+   reference CLI's warmup 2 and 5 repeats, each case's median, IQR,
+   ``norm_ratio`` and ``pct_of_roofline`` printed, failing on a case
+   that raises, a non-finite or non-positive time, or a normalised case
+   above 105 % of the calibrated roofline or 100 % of the data sheet's;
+   (b) ``SortEngine(host_threshold=2^25).sort`` of 15,728,640 random
+   int32 keys through ``run_case`` (warmup 1, 3 repeats), equal to
+   ``np.sort`` outside the clock; (c) (a) recorded into a temporary
+   directory and a second run of the engine and kernels suites judged
+   against it by ``python -m repro_torch.perf --slack 2`` in process, and
+   (a) judged against the committed ``src/repro_torch/perf/baselines/``,
+   failing on a case new to or missing from either (timing verdicts are
+   printed, not gated); (d) fails unless K1, K2, K4 and K5 launched in
+   (a) and K3 in (b), and if K6 or K7 launched;
+13. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
-   7, 8, 9, 10 and 11; the untagged pair kernel and the pair row kernel
-   have no caller on any path and are checked in phase 2 only), each
+   7, 8, 9, 10, 11 and 12 (a) and (b); the untagged pair kernel and the
+   pair row kernel have no caller on any path and are checked in phase 2 only), each
    kernel's device time and launches a call (the script fails if the
    profiler gave none after three sessions), and K1's times at the
    training shape; the launches of single requests are printed on their
@@ -175,6 +192,9 @@ from repro_torch.serve.fleet.loadgen import drive_closed_loop, request_mix  # no
 from repro_torch.verify import cross_check, differential, grid, metamorphic_checks  # noqa: E402
 from repro_torch.verify.properties import fault_replay_for_engine_run  # noqa: E402
 from repro_torch.verify import __main__ as verify_cli  # noqa: E402
+from repro_torch import perf  # noqa: E402
+from repro_torch.perf import __main__ as perf_cli, suites as perf_suites  # noqa: E402
+from repro_torch.roofline import H100  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.launch.serve import synthetic_requests  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm  # noqa: E402
@@ -1532,6 +1552,149 @@ def conformance() -> dict:
     return dict(total)
 
 
+# ----------------------------------------------------------------- phase 12
+# The reference CLI's --warmup 2 and 5 repeats for every suite; the
+# paper-scale case at warmup 1 and 3 repeats (each call 15.7M keys).
+PERF_WARMUP, PERF_REPEATS = 2, 5
+PAPER_CASE_WARMUP, PAPER_CASE_REPEATS = 1, 3
+PERF_SUITE_KERNELS = ("bucket_count_rank", "sort_tile", "batched_row_sort", "sort_pairs_tile_tagged")
+UNCALLED_KERNELS = ("batched_row_sort_pairs", "sort_pairs_tile")  # K6, K7: no caller in either package
+CALIBRATED_PCT_MAX, SHEET_PCT_MAX = 105.0, 100.0
+
+
+def perf_line(rec) -> None:
+    pct = "-" if rec.pct_of_roofline is None else f"{rec.pct_of_roofline:.6g} %"
+    print(f"  {rec.case_id}: median {rec.median_s * 1e3:.4f} ms, iqr {rec.iqr_s * 1e3:.4f} ms, "
+          f"norm_ratio {rec.norm_ratio:.6g}, pct_of_roofline {pct}", flush=True)
+
+
+def roofline_checks(records) -> None:
+    """No call beats the card's peaks: a normalised case above 105 % of the
+    calibrated roofline, or above 100 % of the data sheet's, is a
+    measurement fault (a sample that ended before the card did, or a
+    calibration that read L2)."""
+    for rec in records:
+        if not (math.isfinite(rec.median_s) and rec.median_s > 0):
+            fail(f"perf case {rec.case_id}: raw_s {rec.median_s}")
+        if not rec.normalized:
+            continue
+        sheet = perf.normalize(rec.median_s, rec.workload, H100)["pct_of_roofline"]
+        if not rec.pct_of_roofline <= CALIBRATED_PCT_MAX or not sheet <= SHEET_PCT_MAX:
+            fail(f"perf case {rec.case_id}: {rec.pct_of_roofline} % of the calibrated roofline, "
+                 f"{sheet} % of the data sheet's")
+
+
+def paper_case(hw):
+    """The paper's largest array through ``run_case``: ``SortEngine.sort``
+    of 15,728,640 random int32 keys at phase 3's ``host_threshold`` (at
+    the default 2^20 it would take the host path and launch nothing),
+    checked against ``np.sort`` outside the clock."""
+    state = {}
+
+    def setup():
+        eng = SortEngine(host_threshold=1 << 25, device=DEV.type)
+        x = make_array("random", PAPER_MAX_KEYS, seed=PAPER_MAX_KEYS)
+        state.update(eng=eng, x=x)
+        eng.sort(x)
+        return lambda: eng.sort(x)
+
+    case = perf.PerfCase(
+        suite="engine", key=f"sort/random/{PAPER_MAX_KEYS}/int32", setup=setup,
+        workload=perf_suites._sort_workload(PAPER_MAX_KEYS, 4),
+    )
+    rec = perf.run_case(case, hw=hw, warmup=PAPER_CASE_WARMUP, repeats=PAPER_CASE_REPEATS, device=DEV.type)
+    counts = launch_counts()
+    eng, x = state["eng"], state["x"]
+    if eng.last_report["plan"].path != "sim":
+        fail(f"the paper-scale perf case left the kernels: {eng.last_report['plan']}")
+    if not np.array_equal(eng.sort(x), np.sort(x)):
+        fail("the paper-scale perf case differs from np.sort")
+    perf_line(rec)
+    roofline_checks([rec])
+    return rec, counts
+
+
+def verdict_lines(verdicts) -> None:
+    for v in verdicts:
+        rel = "-" if v.rel is None else f"{v.rel:.4f}x"
+        print(f"    {v.status:7s} {v.case_id}: {rel} {v.detail}")
+
+
+def perf_gate() -> dict:
+    """Phase 12: the port's perf gate (``repro_torch.perf``) whole on the
+    card; runs after phase 8, before the model phases.  Returns the
+    launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    dev = DEV.type
+    hw = perf.host_hw(dev)
+    label = perf_cli.hw_label(hw, dev)
+    print(f"perf gate on {label}: calibrated {hw.name}: copy {hw.hbm_bw:.6g} B/s, float32 GEMM "
+          f"{hw.peak_bf16_flops:.6g} FLOP/s; data sheet ({H100.name}): HBM {H100.hbm_bw:.6g} B/s, "
+          f"float32 {PEAK_OPS_S:.6g}, bf16 {H100.peak_bf16_flops:.6g} FLOP/s")
+
+    # (a) every suite at full scope
+    reset_launches()
+    records = {}
+    for suite in perf_suites.SUITE_NAMES:
+        ts = time.perf_counter()
+        records[suite] = perf.run_suite(suite, smoke=False, hw=hw, warmup=PERF_WARMUP, repeats=PERF_REPEATS,
+                                        progress=perf_line, device=dev)
+        roofline_checks(records[suite])
+        print(f"  suite {suite}: {len(records[suite])} cases, {time.perf_counter() - ts:.1f} s")
+    suite_counts = launch_counts()
+    print(f"perf gate (a): {sum(map(len, records.values()))} cases in {len(records)} suites; launches {suite_counts}")
+
+    # (b) the paper's largest array
+    reset_launches()
+    _, paper_counts = paper_case(hw)
+    print(f"perf gate (b): launches {paper_counts}")
+
+    # (c) the gate end to end: (a) recorded, a second run of two suites
+    # judged against it by the CLI; (a) against the committed baselines
+    with tempfile.TemporaryDirectory() as tmp:
+        for suite, recs in records.items():
+            doc = perf.build_baseline(recs, suite=suite, hw_name=label)
+            perf.save_baseline(doc, perf.baseline_path(suite, tmp))
+        report = Path(tmp) / "report.json"
+        reset_launches()
+        rc = perf_cli.main(["--full", "--suite", "engine", "--suite", "kernels", "--device", dev,
+                            "--baseline-dir", tmp, "--slack", "2", "--report", str(report), "-q"])
+        gate_counts = launch_counts()
+        rep = json.loads(report.read_text())
+    print(f"perf gate (c): the CLI re-ran engine and kernels against (a) with --slack 2: exit {rc}, "
+          f"{rep['totals']}; launches {gate_counts}")
+    structural = []
+    for suite, body in rep["suites"].items():
+        verdicts = [perf.CaseVerdict(**v) for v in body["verdicts"]]
+        verdict_lines(verdicts)
+        structural += [v.case_id for v in verdicts if v.status in ("new", "missing")]
+    for suite, recs in records.items():
+        path = perf.baseline_path(suite, perf_cli.DEFAULT_BASELINE_DIR)
+        if not path.exists():
+            fail(f"no committed port baseline {path}")
+        verdicts = perf.judge(recs, perf.load_baseline(path))
+        print(f"  (a) against the committed {path.name}: {perf.summarize(verdicts)} (timing printed, not gated)")
+        verdict_lines([v for v in verdicts if v.status != "pass"])
+        structural += [v.case_id for v in verdicts if v.status in ("new", "missing")]
+    if structural:
+        fail(f"perf cases new to or missing from a baseline: {structural}")
+
+    # (d) kernel launches
+    for name in PERF_SUITE_KERNELS:
+        if not suite_counts[name]:
+            fail(f"{name} never launched in the perf suites")
+    if not paper_counts["merge_tiles"]:
+        fail("merge_tiles never launched in the paper-scale perf case")
+    for name in UNCALLED_KERNELS:
+        if suite_counts[name] or paper_counts[name] or gate_counts[name]:
+            fail(f"{name} launched in phase 12")
+    total = collections.Counter(suite_counts)
+    total.update(paper_counts)
+    print(f"phase 12 (perf gate): {time.perf_counter() - t0:.1f} s; launches over (a) and (b) {dict(total)}; "
+          f"card {label}")
+    return dict(total)
+
+
 # ----------------------------------------------------------------- phase 9
 SERVE_ARCH = "deepseek-v2-lite-16b"
 SERVE_BATCHES = (4, 16)  # requests a generate
@@ -2118,6 +2281,8 @@ def main() -> None:
     print(f"launches on the serving path (Sortd, fault ladder, fleet), {time.perf_counter() - t0:.1f} s:", serve_counts)
 
     verify_counts = conformance()
+    perf_counts = {name: 0 for name in KERNELS}
+    perf_counts.update(perf_gate())
 
     model_counts = {name: 0 for name in KERNELS}
     model_counts.update(model_serving())
@@ -2136,15 +2301,15 @@ def main() -> None:
         "sort_pairs_tile_tagged": pair_counts["sort_pairs_tile_tagged"],
     }
     for name in launches:
-        launches[name] += (serve_counts[name] + verify_counts[name] + model_counts[name] + family_counts[name]
-                           + train_counts[name])
+        launches[name] += (serve_counts[name] + verify_counts[name] + perf_counts[name] + model_counts[name]
+                           + family_counts[name] + train_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
             c[name]
-            for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, model_counts,
-                      family_counts, train_counts)
+            for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, perf_counts,
+                      model_counts, family_counts, train_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

@@ -642,3 +642,69 @@ def test_cuda_checkpointer_round_trips_card_tensors(cuda_device, tmp_path):
     assert torch.equal(out["w"] + 1.0, tree["w"]) and out["w"].device.type == cuda_device.type
     assert out["h"].dtype == torch.bfloat16 and torch.equal(out["h"].view(torch.int16), tree["h"].view(torch.int16))
     assert torch.equal(out["n"][0], tree["n"][0]) and torch.equal(out["n"][1], tree["n"][1])
+
+
+# ------------------------------------------------------------- the perf gate
+@pytest.mark.cuda
+def test_cuda_calibration_reads_the_card(cuda_device):
+    """The copy probe (1 GiB, twenty times the L2) reads HBM: at least
+    1.0e12 B/s and no more than the data sheet's 3.35e12; the float32
+    GEMM (TF32 off, and left as it was) stays under the 67e12 float32
+    peak."""
+    from repro_torch.roofline.hw import calibrate_host
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    hw = calibrate_host(device=cuda_device)
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    assert hw is calibrate_host(device="cuda")
+    assert 1.0e12 <= hw.hbm_bw <= 3.35e12, hw
+    assert 0 < hw.peak_bf16_flops < 67e12, hw
+    assert hw.name == torch.cuda.get_device_name(cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_measure_waits_for_the_card(cuda_device):
+    """A call that enqueues a known stretch of device work (``_sleep``
+    between two events) and returns a tensor on the card: every timed
+    sample lasts at least that stretch, so the sync held; without the sync
+    the samples measure the enqueue and read shorter."""
+    from repro_torch.perf.measure import measure
+
+    marker = torch.zeros(1, device=cuda_device)
+    spans = []
+
+    def call():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)  # about 10 ms at the card's clocks
+        end.record()
+        spans.append((start, end))
+        return {"out": [marker]}
+
+    m = measure(call, warmup=1, repeats=5)
+    torch.cuda.synchronize()
+    slept = [s.elapsed_time(e) / 1e3 for s, e in spans[1:]]
+    assert min(slept) > 1e-3
+    assert all(t >= s for t, s in zip(m.samples_s, slept)), (m.samples_s, slept)
+    unsynced = measure(call, warmup=0, repeats=3, sync=None)
+    torch.cuda.synchronize()
+    assert unsynced.max_s < min(slept)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_suite_smoke_runs_on_the_card(cuda_device):
+    """The kernels suite's smoke cases on the card: finite records, K2 and
+    K4 launched, K6 and K7 never."""
+    from repro_torch import perf
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    reset_launches()
+    records = perf.run_suite("kernels", smoke=True, warmup=1, repeats=3, device="cuda")
+    counts = launch_counts()
+    assert [r.case_id for r in records] == [c.case_id for c in perf.cases_for("kernels", smoke=True)]
+    for r in records:
+        assert np.isfinite(r.median_s) and r.median_s > 0 and np.isfinite(r.norm_ratio)
+        assert 0 < r.pct_of_roofline <= 105.0, r
+    assert counts["sort_tile"] > 0 and counts["batched_row_sort"] > 0
+    assert counts["batched_row_sort_pairs"] == counts["sort_pairs_tile"] == 0
