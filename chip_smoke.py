@@ -134,7 +134,25 @@ no result line):
    failing on a case new to or missing from either (timing verdicts are
    printed, not gated); (d) fails unless K1, K2, K4 and K5 launched in
    (a) and K3 in (b), and if K6 or K7 launched;
-13. a ``kernels`` JSON line with each kernel's launches on its path
+13. the dry-run against the card's own runs (``repro_torch.launch.dryrun``,
+   host-only: shapes on the meta device, one device's step traced on fake
+   tensors), after phase 11: (a) on ``make_smoke_mesh()`` (this card) and
+   the H100 record, the very runs phases 11 (a) and 10 made, DeepSeek-V2-
+   Lite 4 layers trained at 2 x 4,096 tokens and Zamba2-2.7B's prefill and
+   decode at each of its batches (``max_len`` 256), each prediction
+   printed beside that run's max allocated (the peak reset before each
+   part in phase 10) and median time; fails when a predicted per-device
+   total is more than 25 % off the measured max allocated, or its
+   ``bound_time_s`` exceeds the measured time (a bound above a
+   measurement is impossible); prints the implied roofline fraction; (b)
+   ``python -m repro_torch.launch.dryrun --arch deepseek-v2-lite-16b
+   --mesh both`` and ``--arch zamba2-2.7b --shape long_500k --mesh
+   single`` in subprocesses (at once) into a temporary directory, then
+   ``repro_torch.roofline.report`` and ``gen_experiments`` over it; fails
+   on a ``.FAIL`` file, a nonzero exit or a kernel launch a child
+   reports; (c) fails unless this process's launch counts are the same
+   before and after (a) and (b);
+14. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
    7, 8, 9, 10, 11 and 12 (a) and (b); the untagged pair kernel and the
@@ -204,6 +222,8 @@ from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train.train_step import make_grad_fn  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
@@ -1714,15 +1734,32 @@ def sync_timed(fn, sink: list):
     return wrapper
 
 
-def serve_batch(cfg, params, reqs: list, read_ms: float, card: str) -> dict:
+def peak_of(fn, sink: list):
+    """``fn`` with the card's peak allocation reset before each call and
+    its max allocated during the call appended to ``sink``."""
+    def wrapper(*args):
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        sink.append(torch.cuda.max_memory_allocated())
+        return out
+    return wrapper
+
+
+def serve_batch(cfg, params, reqs: list, read_ms: float, card: str, parts: "list | None" = None) -> dict:
     """Two ``generate`` runs of ``reqs`` (cold, then warm), each held to
     ``max_new_tokens`` tokens a request, L·N launches of K1 (one an MoE
     layer a forward; none without MoE) and one of K5; the same tokens
     both times; then one more under the profiler for the card's busy
-    share.  Returns the launches of the two runs."""
+    share.  Returns the launches of the two runs.  With ``parts`` (a
+    list), the peak is reset before every prefill and decode call, and the
+    warm run's prefill and decode (batch, prompt length, ms, max
+    allocated) are appended to it."""
     R, N = len(reqs), SERVE_NEW_TOKENS
     eng = ServeEngine(cfg, params, registry.get_model_api(cfg), max_len=SERVE_MAX_LEN)
-    prefill_ms, decode_ms = [], []
+    prefill_ms, decode_ms, prefill_peak, decode_peak = [], [], [], []
+    if parts is not None:
+        eng._prefill = peak_of(eng._prefill, prefill_peak)
+        eng._decode = peak_of(eng._decode, decode_peak)
     eng._prefill = sync_timed(eng._prefill, prefill_ms)
     eng._decode = sync_timed(eng._decode, decode_ms)
     total, outs = collections.Counter(), []
@@ -1730,8 +1767,8 @@ def serve_batch(cfg, params, reqs: list, read_ms: float, card: str) -> dict:
     if cfg.is_moe:
         want["bucket_count_rank"] = cfg.num_layers * N
     for run in ("cold", "warm"):
-        prefill_ms.clear()
-        decode_ms.clear()
+        for sink in (prefill_ms, decode_ms, prefill_peak, decode_peak):
+            sink.clear()
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1751,6 +1788,12 @@ def serve_batch(cfg, params, reqs: list, read_ms: float, card: str) -> dict:
               f"launches {dict((k, v) for k, v in got.items() if v)}")
     if outs[0] != outs[1]:
         fail(f"two generate runs of the same {R} requests gave different tokens")
+    if parts is not None:
+        L = max(len(r.prompt) for r in reqs)
+        parts.append({"kind": "prefill", "R": R, "L": L, "ms": prefill_ms[0], "peak": max(prefill_peak)})
+        parts.append({"kind": "decode", "R": R, "L": L, "ms": statistics.median(decode_ms), "peak": max(decode_peak)})
+        print(f"  warm run, each part's max allocated (the peak reset before it): prefill {max(prefill_peak) / 2**30:.2f} "
+              f"GiB, decode {max(decode_peak) / 2**30:.2f} GiB")
     busy_share(f"{cfg.name} generate R={R} N={N} on {card}", lambda: eng.generate(reqs))
     lens = [len(r.prompt) for r in reqs]
     order = [r.id for r in eng.order_by_length(reqs)]
@@ -1975,16 +2018,21 @@ def ssd_check(cfg, params) -> None:
           f"{rel_s:.3e}, limit 1e-3; ssd_chunked {chunked_ms:.3f} ms by events")
 
 
-def serve_family(arch: str, card: str) -> dict:
+def serve_family(arch: str, card: str, parts: "list | None" = None) -> dict:
     """One arch at full width: built on the card, served, checked; its
-    launches.  The caller frees it."""
+    launches.  The caller frees it.  ``parts`` gets each batch's prefill
+    and decode measurements (``serve_batch``)."""
     t0 = time.perf_counter()
     cfg, params, read_ms = build_model(arch, 10)
     total = collections.Counter()
+    peaks = [torch.cuda.max_memory_allocated()]
     for R in SERVE_BATCHES if arch == FAMILY_ARCHS[0] else SERVE_BATCHES[:1]:
         reqs = synthetic_requests(R, cfg.vocab_size, SERVE_NEW_TOKENS)
-        total.update(serve_batch(cfg, params, reqs, read_ms, card))
-    print(f"  {arch}: max allocated while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        total.update(serve_batch(cfg, params, reqs, read_ms, card, parts))
+        peaks.append(torch.cuda.max_memory_allocated())
+    if parts:
+        peaks += [p["peak"] for p in parts]
+    print(f"  {arch}: max allocated while serving {max(peaks) / 2**30:.2f} GiB")
     S = {"encdec": 24, "vlm": VLM_CHECK_LEN}.get(cfg.family, SSM_CHECK_LEN)
     serve_consistency(cfg, params, S, family_inputs(cfg))
     if cfg.ssm.d_state:
@@ -1995,9 +2043,10 @@ def serve_family(arch: str, card: str) -> dict:
     return total
 
 
-def model_families() -> dict:
+def model_families(parts: list) -> dict:
     """Phase 10: the ssm, hybrid, encdec and vlm families at full width on
-    the card, one model at a time."""
+    the card, one model at a time.  ``parts`` gets Zamba2's prefill and
+    decode measurements, each part's peak alone, for phase 13."""
     t0 = time.perf_counter()
     card = smi()
     gc.collect()
@@ -2008,7 +2057,7 @@ def model_families() -> dict:
     print(f"phase 10 starts with {base / 2**20:.1f} MiB allocated on the card (DeepSeek-V2-Lite's 60 GiB freed)")
     total = collections.Counter()
     for arch in FAMILY_ARCHS:
-        total.update(serve_family(arch, card))
+        total.update(serve_family(arch, card, parts if arch == FAMILY_ARCHS[0] else None))
         allocated_back(base, arch)
     print(f"phase 10 (model families): {time.perf_counter() - t0:.1f} s; launches {dict(total)}; card {card}")
     return dict(total)
@@ -2044,11 +2093,12 @@ def train_ops(cfg, tokens: int) -> tuple[float, float]:
     return 3 * (L * layer + unembed) + L * layer, 4 * L * scores
 
 
-def train_main(card: str) -> dict:
+def train_main(card: str, measured: dict) -> dict:
     """(a) DeepSeek-V2-Lite at full width, 4 layers, trained 6 steps
     through ``Trainer(device="cuda")``: finite, falling losses, 8 launches
     of K1 a step (4 MoE layers, forward and remat recompute); then one
-    more step under the profiler for the card's busy share."""
+    more step under the profiler for the card's busy share.  ``measured``
+    gets the warm step's median ms and the max allocated."""
     cfg = registry.get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
     full = registry.get_config(TRAIN_ARCH)
     state_gib = 4 * 4 * full.param_count() / 2**30
@@ -2092,6 +2142,7 @@ def train_main(card: str) -> dict:
             fail(f"(a) max allocated {peak / 2**30:.2f} GiB passes {TRAIN_MEMORY_LIMIT / 2**30:.0f} GiB: cut the batch")
         tokens = TRAIN_BATCH * TRAIN_SEQ
         warm = statistics.median(walls[1:])
+        measured.update(ms=warm, peak=peak)
         ops16, ops32 = train_ops(cfg, tokens)
         floor_ms = (ops16 / BF16_OPS_S + ops32 / PEAK_OPS_S) * 1e3
         print(f"  (a) {TRAIN_STEPS} steps on {card}: losses {[round(x, 4) for x in losses]}; lr "
@@ -2211,11 +2262,12 @@ def train_resume(card: str) -> None:
           f"restore) at step 2, data step 2; its step-2 loss {got!r} equals the first run's bit for bit")
 
 
-def model_training(rows: dict) -> dict:
+def model_training(rows: dict, measured: dict) -> dict:
     """Phase 11: training on the card: (a) DeepSeek-V2-Lite at full width
     through K1's dispatch, (b) the dispatch's K1 and argsort twins bit for
     bit (a process of its own) and K1 timed at the training shape, (c) the
-    training launcher, (d) resume from a checkpoint."""
+    training launcher, (d) resume from a checkpoint.  ``measured`` gets
+    (a)'s step ms and max allocated, for phase 13."""
     t0 = time.perf_counter()
     card = smi()
     gc.collect()
@@ -2224,7 +2276,7 @@ def model_training(rows: dict) -> dict:
     if base > 1 << 30:
         fail(f"{base / 2**30:.2f} GiB still allocated after phase 10 freed its models")
     print(f"phase 11 starts with {base / 2**20:.1f} MiB allocated on the card")
-    counts = train_main(card)
+    counts = train_main(card, measured)
     allocated_back(base, "(a) DeepSeek-V2-Lite training", 11)
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     r = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.train_dispatch_twins()"], env=env,
@@ -2240,7 +2292,116 @@ def model_training(rows: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 13
+DRYRUN_MEMORY_TOLERANCE = 0.25  # predicted per-device total against max allocated
+ZAMBA_ARCH = FAMILY_ARCHS[0]
+DRYRUN_CLI = (
+    ("--arch", TRAIN_ARCH, "--mesh", "both"),
+    ("--arch", ZAMBA_ARCH, "--shape", "long_500k", "--mesh", "single"),
+)
+
+
+def predicted_against_measured(label: str, rec: dict, peak: int, ms: float, card: str) -> dict:
+    """One prediction beside its run: fails when the predicted per-device
+    total misses the measured max allocated by more than the tolerance, or
+    when the predicted bound exceeds the measured time."""
+    mem, roof = rec["memory_analysis"], rec["roofline"]
+    total, bound_ms = mem["total_bytes"], roof["bound_time_s"] * 1e3
+    off = total / peak - 1.0
+    print(f"  (a) {label} on {card}: predicted {total / 2**30:.2f} GiB a device (arguments "
+          f"{mem['argument_bytes'] / 2**30:.2f}, outputs {mem['output_bytes'] / 2**30:.2f}, temp "
+          f"{mem['temp_bytes'] / 2**30:.2f}, aliased {mem['alias_bytes'] / 2**30:.2f}) against {peak / 2**30:.2f} GiB "
+          f"max allocated ({100 * off:+.1f} %); bound {bound_ms:.3f} ms ({roof['dominant']}: compute "
+          f"{roof['t_compute_s'] * 1e3:.3f}, memory {roof['t_memory_s'] * 1e3:.3f} ms) against {ms:.3f} ms measured, "
+          f"roofline fraction {bound_ms / ms:.3f}; traced in {rec['compile_s']} s")
+    if abs(off) > DRYRUN_MEMORY_TOLERANCE:
+        fail(f"(a) {label}: predicted {total} bytes a device, measured max allocated {peak}: "
+             f"{100 * off:+.1f} % past {100 * DRYRUN_MEMORY_TOLERANCE:.0f} %")
+    if bound_ms > ms:
+        fail(f"(a) {label}: the predicted bound {bound_ms:.3f} ms exceeds the measured {ms:.3f} ms")
+    return {"label": label, "predicted_bytes": total, "measured_bytes": peak, "bound_ms": bound_ms, "ms": ms}
+
+
+def dry_run_cli(out: str):
+    """(b) the dry-run CLI for DeepSeek-V2-Lite on both meshes and Zamba2's
+    long_500k on one, in two processes started at once; the caller goes on
+    and ``dry_run_cli_done`` collects them."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for args in DRYRUN_CLI]
+
+
+def dry_run_cli_done(procs: list, out: str, t0: float) -> None:
+    """(b) the CLI's processes ended well, with no launch and no
+    ``.FAIL``; then the report and the section generator over the cells."""
+    n_ok = 0
+    for args, proc in zip(DRYRUN_CLI, procs):
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"(b) dryrun {' '.join(args)} exited {proc.returncode}: {stdout[-2000:]} {stderr[-2000:]}")
+        launched = re.search(r"kernel launches: (\{.*\})", stdout)
+        if not launched or any(json.loads(launched.group(1)).values()):
+            fail(f"(b) dryrun {' '.join(args)} reported launches: {launched and launched.group(1)}")
+        summary = re.search(r"(\d+) ok, 0 failed in \S+ s", stdout)
+        if not summary or summary.group(1) == "0":
+            fail(f"(b) dryrun {' '.join(args)} ran no cell: {stdout[-2000:]}")
+        n_ok += int(summary.group(1))
+        print(f"  (b) python -m repro_torch.launch.dryrun {' '.join(args)}: {summary.group(0)}; {launched.group(0)}")
+    fails = sorted(f for f in os.listdir(out) if f.endswith(".FAIL"))
+    cells = sorted(f for f in os.listdir(out) if f.endswith(".json"))
+    if fails or len(cells) != n_ok:
+        fail(f"(b) the dry-run wrote {cells} and failed {fails}")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    for mod in ("repro_torch.roofline.report", "repro_torch.roofline.gen_experiments"):
+        r = subprocess.run([sys.executable, "-m", mod, "--dir", out], env=env, capture_output=True, text=True,
+                           timeout=120)
+        if r.returncode != 0 or DRYRUN_CLI[0][1] not in r.stdout:
+            fail(f"(b) {mod} exited {r.returncode}: {r.stderr[-2000:]}")
+        if mod.endswith("report"):
+            table = [ln for ln in r.stdout.splitlines() if ln.startswith("| ")]
+    print(f"  (b) {len(cells)} cells, no .FAIL; report and gen_experiments rendered them; "
+          f"{time.perf_counter() - t0:.1f} s from the start of the phase")
+    print("\n".join("      " + ln for ln in table))
+
+
+def dry_run_against_the_card(train_measured: dict, zamba_parts: list) -> None:
+    """Phase 13: the dry-run's one-card predictions held to phases 11 (a)
+    and 10's runs, the CLI over two archs, and no launch by either."""
+    t0 = time.perf_counter()
+    card = smi()
+    before = launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        procs = dry_run_cli(out)
+        try:
+            mesh = make_smoke_mesh()
+            print(f"phase 13 (dry-run): the smoke mesh {mesh.shape} {mesh.axis_names} on {card}; the H100 record "
+                  f"({H100.name}: {H100.peak_bf16_flops:.3g} FLOP/s bf16, {H100.hbm_bw:.3g} B/s)")
+            cfg = registry.get_config(TRAIN_ARCH).replace(num_layers=TRAIN_LAYERS)
+            shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+            rec = dryrun.predict(TRAIN_ARCH, cfg, shape, mesh, grad_accum=1, full_trace=True, hw=H100)
+            predicted_against_measured(f"{TRAIN_ARCH} {TRAIN_LAYERS} layers train {TRAIN_BATCH} x {TRAIN_SEQ} "
+                                       "(phase 11 (a))", rec, train_measured["peak"], train_measured["ms"], card)
+            zcfg = registry.get_config(ZAMBA_ARCH)
+            for part in zamba_parts:
+                shape = ShapeConfig("serve", part["L"], part["R"], part["kind"])
+                rec = dryrun.predict(ZAMBA_ARCH, zcfg, shape, mesh, cache_len=SERVE_MAX_LEN, full_trace=True, hw=H100)
+                predicted_against_measured(f"{ZAMBA_ARCH} {part['kind']} R={part['R']} L={part['L']} max_len="
+                                           f"{SERVE_MAX_LEN} (phase 10)", rec, part["peak"], part["ms"], card)
+            dry_run_cli_done(procs, out, t0)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    after = launch_counts()
+    if after != before:
+        fail(f"(c) kernels launched during the dry-run: {before} -> {after}")
+    print(f"  (c) launch counts the same before and after (a) and (b): {after}")
+    print(f"phase 13 (dry-run): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     preflight()
     rows = kernel_checks()
 
@@ -2287,13 +2448,16 @@ def main() -> None:
     model_counts = {name: 0 for name in KERNELS}
     model_counts.update(model_serving())
     family_counts = {name: 0 for name in KERNELS}
-    family_counts.update(model_families())
+    zamba_parts: list = []
+    family_counts.update(model_families(zamba_parts))
     if family_counts["sort_pairs_tile_tagged"] == 0:
         fail("sort_pairs_tile_tagged never launched on the model families' path")
     train_counts = {name: 0 for name in KERNELS}
-    train_counts.update(model_training(rows))
+    train_measured: dict = {}
+    train_counts.update(model_training(rows, train_measured))
     if train_counts["bucket_count_rank"] == 0:
         fail("bucket_count_rank never launched on the training path")
+    dry_run_against_the_card(train_measured, zamba_parts)
 
     launches = {
         **sort_counts,
@@ -2330,6 +2494,7 @@ def main() -> None:
             "checked": "phase 2, bit for bit against the plain version",
             **{k: v for k, v in r.items() if k.startswith("train_")},
         })
+    print(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s")
     print("card:", smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

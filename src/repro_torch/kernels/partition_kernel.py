@@ -15,6 +15,8 @@ decoupled look-back: each id is read once and each rank written once.
 The plain version is the reference's one-hot exclusive cumsum, taken over
 chunks of ids with the running counts carried between chunks, so it never
 holds an ``n x B`` matrix.  An id outside ``[0, B)`` is not counted and gets rank 0.
+The wrapper's work is the custom operator ``repro_torch::bucket_count_rank``
+(``_count_rank_op``), so a fake-tensor trace counts it as one op.
 """
 
 from __future__ import annotations
@@ -126,6 +128,18 @@ def bucket_count_rank(ids: torch.Tensor, num_buckets: int, *, debug: bool = Fals
         if bool(bad.any()):
             offenders = ids[bad][:8].cpu().tolist()
             raise ValueError(f"bucket ids out of range [0, {num_buckets}): {offenders!r}")
+    return _count_rank_op(ids, num_buckets)
+
+
+bucket_count_rank.launches = 0
+
+
+@torch.library.custom_op("repro_torch::bucket_count_rank", mutates_args=())
+def _count_rank_op(ids: torch.Tensor, num_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wrapper's work as one operator: the plain version on a CPU
+    tensor, the kernel on a CUDA one.  Under a fake-tensor trace its fake
+    implementation stands in, so a trace sees one op with its operands and
+    results, launches nothing and never expands into the plain version."""
     if ids.device.type == "cpu":
         return bucket_count_rank_plain(ids, num_buckets)
     if not ids.is_contiguous():
@@ -133,4 +147,6 @@ def bucket_count_rank(ids: torch.Tensor, num_buckets: int, *, debug: bool = Fals
     return carry_chunks(ids, num_buckets, _launch, MAX_KERNEL_IDS)
 
 
-bucket_count_rank.launches = 0
+@_count_rank_op.register_fake
+def _(ids: torch.Tensor, num_buckets: int):
+    return ids.new_empty(num_buckets), ids.new_empty(ids.shape)

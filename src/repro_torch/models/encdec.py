@@ -19,6 +19,7 @@ API as ``repro_torch.models.lm``:
   init_cache(cfg, batch, max_len, *, device)     → cache
   prefill(params, batch, cfg, rules, cache)      → (last_logits (B,V), cache)
   decode_step(params, tokens, cfg, rules, cache, pos) → (logits (B,V), cache)
+  param_specs(cfg, rules, tp_size)               → Spec tree (mesh axes)
 with ``batch = {"enc_frames": (B, F, d), "tokens": (B, S)}``.
 """
 
@@ -29,8 +30,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention
-from repro_torch.models.common import NO_SHARD, AxisRules, layer, put, shard, tree_map, unstack
-from repro_torch.models.lm import apply_attn_block, init_attn, remat
+from repro_torch.models.common import NO_SHARD, AxisRules, layer, prepend_none_spec, put, shard, tree_map, unstack
+from repro_torch.models.lm import apply_attn_block, attn_specs, init_attn, remat
 from repro_torch.models.rope import sinusoidal_positions
 
 
@@ -66,6 +67,27 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
         "dec_blocks": _init_dec_blocks(generator, cfg),
         "final_norm": L.init_norm(cfg.d_model, cfg, generator.device),
     }
+
+
+def param_specs(cfg: ModelConfig, rules: AxisRules, tp_size: int = 1):
+    """The mesh-axis ``Spec`` of every leaf of ``init``'s tree."""
+    enc = {"ln1": L.norm_specs(cfg), "attn": attn_specs(cfg), "ln2": L.norm_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    dec = {
+        "ln1": L.norm_specs(cfg),
+        "self_attn": attn_specs(cfg),
+        "ln_x": L.norm_specs(cfg),
+        "cross_attn": attn_specs(cfg),
+        "ln2": L.norm_specs(cfg),
+        "mlp": L.mlp_specs(cfg),
+    }
+    specs = {
+        "embedding": L.embedding_specs(cfg),
+        "enc_blocks": prepend_none_spec(enc),
+        "enc_norm": L.norm_specs(cfg),
+        "dec_blocks": prepend_none_spec(dec),
+        "final_norm": L.norm_specs(cfg),
+    }
+    return L.resolve_specs(specs, rules)
 
 
 def _positions(S: int, cfg, device, start: int = 0) -> torch.Tensor:

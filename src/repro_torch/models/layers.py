@@ -2,7 +2,9 @@
 
 The port's copy of ``repro.models.layers``.  Each ``init_*`` takes a
 ``torch.Generator`` (the parameters are made on its device) and an
-optional ``lead`` of stacked layer axes.  Weights are kept in
+optional ``lead`` of stacked layer axes; each ``*_specs`` gives the
+logical ``Spec`` of every leaf, which ``resolve_specs`` maps onto mesh
+axes.  Weights are kept in
 ``cfg.param_dtype`` and cast to ``cfg.dtype`` where they are used, as in
 the reference; ``embed_tokens`` gathers the rows first and casts them
 after, which gives the same values without casting the whole table.
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import AxisRules, const_init, dense_init, shard
+from repro_torch.models.common import AxisRules, Spec, const_init, dense_init, shard, spec_map
 
 
 # ------------------------------------------------------------------- norms
@@ -22,6 +24,13 @@ def init_norm(d: int, cfg, device, *, lead: tuple[int, ...] = ()) -> dict:
     if cfg.norm == "layernorm":
         p["bias"] = const_init(0.0, (d,), cfg.param_dtype, device, lead=lead)
     return p
+
+
+def norm_specs(cfg) -> dict:
+    s = {"scale": Spec(None)}
+    if cfg.norm == "layernorm":
+        s["bias"] = Spec(None)
+    return s
 
 
 def apply_norm(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -76,6 +85,12 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
     return out
 
 
+def mlp_specs(cfg) -> dict:
+    if cfg.act == "silu":
+        return {"wi": Spec("fsdp", "tensor"), "wg": Spec("fsdp", "tensor"), "wo": Spec("tensor", "fsdp")}
+    return {"wi": Spec("fsdp", "tensor"), "wo": Spec("tensor", "fsdp"), "bi": Spec("tensor"), "bo": Spec(None)}
+
+
 # -------------------------------------------------------------- embeddings
 def init_embedding(gen: torch.Generator, cfg) -> dict:
     p = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), 1, cfg.param_dtype)}
@@ -95,3 +110,15 @@ def unembed(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
         w = p["embed"].T
     logits = torch.einsum("bsd,dv->bsv", x, w.to(cfg.dtype))
     return shard(logits, rules, "batch", "seq", "tensor")
+
+
+def embedding_specs(cfg) -> dict:
+    s = {"embed": Spec("tensor", "fsdp")}
+    if not cfg.tie_embeddings:
+        s["unembed"] = Spec("fsdp", "tensor")
+    return s
+
+
+def resolve_specs(tree, rules: AxisRules):
+    """Map logical-name ``Spec``s → mesh-axis ``Spec``s."""
+    return spec_map(lambda s: rules.spec(*s), tree)

@@ -18,6 +18,7 @@ API (plain functions on tensors; the device is that of the parameters):
   init_cache(cfg, batch, max_len, *, device)     → cache
   prefill(params, batch, cfg, rules, cache)      → (last_logits (B,V), cache)
   decode_step(params, tokens, cfg, rules, cache, pos) → (logits (B,V), cache)
+  param_specs(cfg, rules, tp_size)               → Spec tree (mesh axes)
 
 ``prefill`` and ``decode_step`` leave the cache they are given as it was
 and return a new one, as the reference's functional updates do: each
@@ -37,7 +38,20 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.attention import RING_INVALID, attention
-from repro_torch.models.common import NO_SHARD, AxisRules, const_init, dense_init, layer, put, shard, tree_map, unstack
+from repro_torch.models.common import (
+    NO_SHARD,
+    AxisRules,
+    Spec,
+    const_init,
+    dense_init,
+    gather_seq,
+    layer,
+    prepend_none_spec,
+    put,
+    shard,
+    tree_map,
+    unstack,
+)
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 
@@ -59,6 +73,20 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig, *, lead: tuple[int, ...] =
         p["q_norm"] = const_init(1.0, (hd,), pd, dev, lead=lead)
         p["k_norm"] = const_init(1.0, (hd,), pd, dev, lead=lead)
     return p
+
+
+def attn_specs(cfg) -> dict:
+    s = {
+        "wq": Spec("fsdp", "tensor", None),
+        "wk": Spec("fsdp", "tensor", None),
+        "wv": Spec("fsdp", "tensor", None),
+        "wo": Spec("tensor", None, "fsdp"),
+    }
+    if cfg.qkv_bias:
+        s |= {"bq": Spec("tensor", None), "bk": Spec("tensor", None), "bv": Spec("tensor", None)}
+    if cfg.qk_norm:
+        s |= {"q_norm": Spec(None), "k_norm": Spec(None)}
+    return s
 
 
 def _qkv(p, x, cfg, *, positions, theta, positions_thw=None):
@@ -88,7 +116,10 @@ def apply_attn_block(
     writes this step's keys into the cache tensors in place and returns them."""
     q, k, v = _qkv(p, x, cfg, positions=positions, theta=theta, positions_thw=positions_thw)
     if cache_kv is None:
-        out = attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk, matmul_bf16=cfg.attn_matmul_bf16)
+        out = attention(
+            q, gather_seq(k, rules), gather_seq(v, rules), causal=True, window=window, chunk=cfg.attn_chunk,
+            matmul_bf16=cfg.attn_matmul_bf16,
+        )
         new_kv = (k, v)
     elif len(cache_kv) == 3:
         # ring-buffer window cache: O(window) instead of O(seq)
@@ -134,6 +165,16 @@ def init_blocks(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return blk
 
 
+def block_specs(cfg, tp_size: int) -> dict:
+    """One layer's specs (``init_blocks`` without the leading L axis)."""
+    if _is_mamba(cfg):
+        return {"ln": L.norm_specs(cfg), "mamba": SSM.mamba_specs(cfg)}
+    s = {"ln1": L.norm_specs(cfg), "ln2": L.norm_specs(cfg)}
+    s["attn"] = MLA.mla_specs(cfg) if cfg.mla.kv_lora_rank else attn_specs(cfg)
+    s["moe" if cfg.is_moe else "mlp"] = MOE.moe_specs(cfg, tp_size) if cfg.is_moe else L.mlp_specs(cfg)
+    return s
+
+
 def apply_block(blk, x, cfg, rules, *, positions, window, theta, aux, positions_thw=None, cache=None, pos=None):
     """One decoder layer.  Returns (x, aux, new_cache)."""
     if _is_mamba(cfg):
@@ -173,6 +214,16 @@ def init_shared_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def shared_block_specs(cfg) -> dict:
+    return {
+        "in_proj": Spec("fsdp", "tensor"),
+        "ln1": L.norm_specs(cfg),
+        "attn": attn_specs(cfg),
+        "ln2": L.norm_specs(cfg),
+        "mlp": L.mlp_specs(cfg),
+    }
+
+
 def apply_shared_block(p, x, x0, cfg, rules, *, positions, cache=None, pos=None):
     """Zamba2's shared attention block: concat(x, embeddings) → 2d × d
     projection → attention (global, ``cfg.rope_theta``) and MLP; returns
@@ -207,6 +258,18 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if cfg.is_hybrid:
         params["shared"] = init_shared_block(generator, cfg)
     return params
+
+
+def param_specs(cfg: ModelConfig, rules: AxisRules, tp_size: int = 1):
+    """The mesh-axis ``Spec`` of every leaf of ``init``'s tree."""
+    specs = {
+        "embedding": L.embedding_specs(cfg),
+        "final_norm": L.norm_specs(cfg),
+        "blocks": prepend_none_spec(block_specs(cfg, tp_size)),
+    }
+    if cfg.is_hybrid:
+        specs["shared"] = shared_block_specs(cfg)
+    return L.resolve_specs(specs, rules)
 
 
 # leaves that ``ModelConfig.param_count`` leaves out: norms, biases and

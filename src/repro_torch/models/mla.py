@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.attention import attention, attention_with_lse
-from repro_torch.models.common import AxisRules, dense_init, put, shard
+from repro_torch.models.common import AxisRules, Spec, dense_init, gather_seq, put, shard
 from repro_torch.models.rope import apply_rope
 
 
@@ -32,6 +32,17 @@ def init_mla(gen: torch.Generator, cfg, *, lead: tuple[int, ...] = ()) -> dict:
         "wuk": dense_init(gen, (r, H, dn), 0, pd, lead=lead),
         "wuv": dense_init(gen, (r, H, dv), 0, pd, lead=lead),
         "wo": dense_init(gen, (H, dv, d), (0, 1), pd, lead=lead),
+    }
+
+
+def mla_specs(cfg) -> dict:
+    return {
+        "wq": Spec("fsdp", "tensor", None),
+        "wdkv": Spec("fsdp", None),
+        "wkr": Spec("fsdp", None),
+        "wuk": Spec(None, "tensor", None),
+        "wuv": Spec(None, "tensor", None),
+        "wo": Spec("tensor", None, "fsdp"),
     }
 
 
@@ -68,6 +79,7 @@ def mla_attention(p, x, cfg, rules: AxisRules, *, positions, chunk=1024):
     c, kr = _latent(p, x, cfg, positions)
     k, v = _expand(p, c, kr, cfg)
     q = torch.cat([qn, qr], -1)
+    k, v = gather_seq(k, rules), gather_seq(v, rules)
     out = attention(q, k, v, causal=True, chunk=chunk, scale=_scale(cfg), matmul_bf16=cfg.attn_matmul_bf16)
     out = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cfg.dtype))
     return shard(out, rules, "batch", "seq", None), (c, kr)

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import AxisRules, dense_init, shard
+from repro_torch.models.common import AxisRules, Spec, dense_init, shard
 
 
 def init_moe(gen: torch.Generator, cfg, *, lead: tuple[int, ...] = ()) -> dict:
@@ -48,6 +48,22 @@ def init_moe(gen: torch.Generator, cfg, *, lead: tuple[int, ...] = ()) -> dict:
         p["shared_wg"] = dense_init(gen, (d, ff), 0, pd, lead=lead)
         p["shared_wo"] = dense_init(gen, (ff, d), 0, pd, lead=lead)
     return p
+
+
+def moe_specs(cfg, tp_size: int) -> dict:
+    """Experts on the tensor axis when their count divides it (expert
+    parallelism), else each expert's hidden width."""
+    m = cfg.moe
+    if m.num_experts % max(tp_size, 1) == 0 and tp_size > 1:
+        e_wi, e_wo = Spec("tensor", "fsdp", None), Spec("tensor", None, "fsdp")
+    else:
+        e_wi, e_wo = Spec(None, "fsdp", "tensor"), Spec(None, "tensor", "fsdp")
+    s = {"router": Spec("fsdp", None), "wi": e_wi, "wg": e_wi, "wo": e_wo}
+    if m.num_shared_experts:
+        s["shared_wi"] = Spec("fsdp", "tensor")
+        s["shared_wg"] = Spec("fsdp", "tensor")
+        s["shared_wo"] = Spec("tensor", "fsdp")
+    return s
 
 
 def _router(p, x, cfg):

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import AxisRules, const_init, dense_init, shard
+from repro_torch.models.common import AxisRules, Spec, const_init, dense_init, shard
 
 
 def _dims(cfg):
@@ -41,6 +41,19 @@ def init_mamba(gen: torch.Generator, cfg, *, lead: tuple[int, ...] = ()) -> dict
         "dt_bias": const_init(0.0, (nh,), pd, dev, lead=lead),
         "norm_scale": const_init(1.0, (d_inner,), pd, dev, lead=lead),
         "out_proj": dense_init(gen, (d_inner, cfg.d_model), 0, pd, lead=lead),
+    }
+
+
+def mamba_specs(cfg) -> dict:
+    return {
+        "in_proj": Spec("fsdp", "tensor"),
+        "conv_w": Spec(None, "tensor"),
+        "conv_b": Spec("tensor"),
+        "A_log": Spec(None),
+        "D": Spec(None),
+        "dt_bias": Spec(None),
+        "norm_scale": Spec("tensor"),
+        "out_proj": Spec("tensor", "fsdp"),
     }
 
 

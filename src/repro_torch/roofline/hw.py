@@ -54,6 +54,9 @@ H100 = HW(
     hbm_bytes=80e9,
 )
 
+# The records a roofline may divide by, by the name the CLIs take.
+RECORDS = {"h100": H100, "v5e": V5E}
+
 # Probe sizes by device type: (copy MiB, GEMM k).  The card's copy is 1 GiB,
 # twenty times its L2; its GEMM k = 8192 keeps the float32 product
 # compute-bound.

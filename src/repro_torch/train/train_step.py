@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.common import NO_SHARD, AxisRules, tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.common import NO_SHARD, AxisRules, init_device, tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import compress_grads, init_error_fb
 from repro_torch.optim.schedules import cosine_warmup
@@ -24,16 +24,18 @@ _MB_AXIS = {"positions_thw": 1}
 
 
 def init_train_state(generator: torch.Generator, cfg: ModelConfig, run: RunConfig, model_api) -> dict:
-    """Parameters drawn from ``generator`` on its device, AdamW's state,
-    the step; with ``master_weights`` the live parameters are bf16 and
-    the float32 master lives in the optimizer state; with int8
-    compression, the error-feedback residual."""
+    """Parameters drawn from ``generator`` on its device (meta tensors
+    inside ``common.shapes_only()``), AdamW's state, the step; with
+    ``master_weights`` the live parameters are bf16 and the float32 master
+    lives in the optimizer state; with int8 compression, the
+    error-feedback residual."""
     params = model_api.init(cfg, generator)
     opt = adamw_init(params)
     if run.master_weights:
         opt["master"] = tree_map(lambda p: p.to(torch.float32), params)
         params = tree_map(lambda p: p.to(torch.bfloat16), params)
-    state = {"params": params, "opt": opt, "step": torch.zeros((), dtype=torch.int32, device=generator.device)}
+    step = torch.zeros((), dtype=torch.int32, device=init_device(generator.device))
+    state = {"params": params, "opt": opt, "step": step}
     if run.grad_compression == "int8":
         state["error_fb"] = init_error_fb(params)
     return state

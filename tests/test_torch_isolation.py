@@ -36,6 +36,8 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.train, repro_torch.optim, repro_torch.ckpt, repro_torch.launch.train\n"
         "import repro_torch.perf, repro_torch.perf.__main__, repro_torch.roofline, repro_torch.roofline.analysis\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.launch.dryrun, repro_torch.launch.diag\n"
+        "import repro_torch.roofline.report, repro_torch.roofline.gen_experiments\n"
         "from repro_torch.configs import registry\n"
         "for arch in registry.ARCHS: registry.get_model_api(registry.get_config(arch))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
