@@ -152,10 +152,28 @@ no result line):
    on a ``.FAIL`` file, a nonzero exit or a kernel launch a child
    reports; (c) fails unless this process's launch counts are the same
    before and after (a) and (b);
-14. a ``kernels`` JSON line with each kernel's launches on its path
+14. the dist path over ranks (``SortEngine(mesh=...)`` on
+   ``repro_torch.core.dist_sort``, ranks spawned by
+   ``repro_torch.runtime.ranks.run_ranks``), after phase 13: (a) world
+   size 1 over NCCL on a (1,) and a (1, 1) mesh, a dist plan forced for
+   each of ``paper``, ``sample``, ``valiant`` and ``hier`` at 15,728,640
+   random int32 keys, each equal to ``np.sort``, with K1 and K2 launched,
+   and timed; (b) 4 ranks sharing the card over gloo (NCCL takes one rank
+   a card): ``python -m repro_torch.verify --smoke --devices 4`` in a
+   subprocess (510 cells, the 72 dist cells on the ranks, no cross-check
+   mismatch), then the engine's own planned dist sort of 15,728,640 int32
+   keys on (4,) for random, sorted and dupes keys and ``hier`` on (2, 2),
+   each equal to ``np.sort`` on every rank, with the plan, retries, the
+   share of the wall time in the ``all_to_all`` exchange and in the
+   gathers, and each rank's K1/K2/K3 launches, which each rank returns;
+   (c) ``int8_psum`` and ``hierarchical_psum`` (within 1e-6) and a
+   4-stage ``pipeline_forward`` (within 1e-5) on card tensors over the 4
+   ranks, held to the same calls on CPU tensors;
+15. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
-   7, 8, 9, 10, 11 and 12 (a) and (b); the untagged pair kernel and the
+   7, 8, 9, 10, 11, 12 (a) and (b) and 14 (a) and (b), summed over the
+   ranks; the untagged pair kernel and the
    pair row kernel have no caller on any path and are checked in phase 2 only), each
    kernel's device time and launches a call (the script fails if the
    profiler gave none after three sessions), and K1's times at the
@@ -224,6 +242,9 @@ from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train.train_step import make_grad_fn  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
+from repro_torch.runtime import hierarchical_psum, int8_psum  # noqa: E402
+from repro_torch.runtime import ranks as rt_ranks  # noqa: E402
+from repro_torch.runtime.pipeline import pipeline_forward  # noqa: E402
 
 DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate
@@ -2400,6 +2421,194 @@ def dry_run_against_the_card(train_measured: dict, zamba_parts: list) -> None:
     print(f"phase 13 (dry-run): {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 14
+DIST_METHODS = ("paper", "sample", "valiant", "hier")
+DIST_KERNELS = ("bucket_count_rank", "sort_tile", "merge_tiles")
+DIST_RANKS = 4  # ranks sharing the one card over gloo
+DIST_CASES = (("random", (DIST_RANKS,)), ("sorted", (DIST_RANKS,)), ("dupes", (DIST_RANKS,)), ("random", (2, 2)))
+# phase 14 (c): the reference's pipeline test shape, and one (256, 1024)
+# float32 block a rank for the reductions
+PIPE_L, PIPE_M, PIPE_MB, PIPE_D = 8, 6, 2, 16
+PSUM_SHAPE = (256, 1024)
+
+
+def dist_launches(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in DIST_KERNELS}
+
+
+def dist_world_one(mesh, n: int) -> dict:
+    """Phase 14 (a), the one rank of an NCCL group: each dist method forced
+    at ``n`` random int32 keys on a (1,) mesh, ``hier`` on a (1, 1) one."""
+    x = make_array("random", n, seed=21)
+    want = np.sort(x)
+    flat = SortEngine(mesh=mesh)
+    hier = SortEngine(mesh=rt_ranks.make_mesh((1, 1), ("pod", "data"), "cuda"), axis_names=("pod", "data"))
+    out = {}
+    for method in DIST_METHODS:
+        eng = hier if method == "hier" else flat
+        plan = SortPlan("dist", method, None, None, "forced")
+        eng.sort(x[: 1 << 20], plan=plan)  # warm: the first launches of each shape class
+        before = launch_counts()
+        t0 = time.perf_counter()
+        y = eng.sort(x, plan=plan)
+        secs = time.perf_counter() - t0
+        out[method] = {"equal": bool(np.array_equal(y, want)), "s": secs, "launches": dist_launches(before),
+                       "retries": eng.last_report["overflow_retries"], "cf": eng.last_report["capacity_factor"]}
+    return out
+
+
+def runtime_on_card(mesh, mesh22) -> dict:
+    """Phase 14 (c) on one rank: ``int8_psum``, ``hierarchical_psum`` and
+    ``pipeline_forward`` on card tensors against the same calls on CPU
+    tensors in the same group; the largest differences."""
+    rank = torch.distributed.get_rank()
+    gen = np.random.default_rng(0)
+    blocks = gen.standard_normal((DIST_RANKS, *PSUM_SHAPE)).astype(np.float32)
+    w = (gen.standard_normal((PIPE_L, PIPE_D, PIPE_D)) * 0.3).astype(np.float32)
+    x = gen.standard_normal((PIPE_M, PIPE_MB, PIPE_D)).astype(np.float32)
+    pipe = rt_ranks.make_mesh((DIST_RANKS,), ("pipe",), "cuda")
+    mine = torch.from_numpy(blocks[rank])
+
+    def block(p, h):
+        return torch.tanh(h @ p["w"])
+
+    calls = {
+        "int8_psum": lambda d: int8_psum(mine.to(d), "data", mesh=mesh),
+        "hierarchical_psum": lambda d: hierarchical_psum(mine.to(d), fast_axis="data", slow_axis="pod", mesh=mesh22),
+        "pipeline_forward": lambda d: pipeline_forward({"w": torch.from_numpy(w).to(d)}, torch.from_numpy(x).to(d),
+                                                       block, mesh=pipe),
+    }
+    out = {}
+    for name, call in calls.items():
+        card = call(DEV).cpu()
+        out[name] = float((card.double() - call(torch.device("cpu")).double()).abs().max())
+    return out
+
+
+def dist_four_ranks(mesh, n: int) -> dict:
+    """Phase 14 (b) and (c) on one of the ranks sharing the card over gloo:
+    the engine's own planned dist sort of ``n`` keys on each case, with
+    this rank's launches, and the synchronised seconds inside, and the
+    bytes handed to, the exchange (``all_to_all``) and the gathers (the
+    splitter sample, the counts, the global array); then the runtime."""
+    mesh22 = rt_ranks.make_mesh((2, 2), ("pod", "data"), "cuda")
+    engines = {(DIST_RANKS,): SortEngine(mesh=mesh), (2, 2): SortEngine(mesh=mesh22, axis_names=("pod", "data"))}
+    for eng in engines.values():
+        eng.sort(make_array("random", 1 << 20, seed=1))  # warm
+    secs = {"all_to_all": 0.0, "all_gather": 0.0}
+    nbytes = dict.fromkeys(secs, 0)
+    originals = {name: getattr(rt_ranks, name) for name in secs}
+
+    def clocked(name):
+        def call(out, inp, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = originals[name](out, inp, group)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+            nbytes[name] += inp.numel() * inp.element_size()
+            return r
+        return call
+
+    out = {}
+    for name in secs:
+        setattr(rt_ranks, name, clocked(name))
+    try:
+        for dist_name, shape in DIST_CASES:
+            eng = engines[shape]
+            x = make_array(dist_name, n, seed=22)
+            want = np.sort(x)
+            secs.update(all_to_all=0.0, all_gather=0.0)
+            nbytes.update(all_to_all=0, all_gather=0)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            y = eng.sort(x)
+            wall = time.perf_counter() - t0
+            rep = eng.last_report
+            out[(dist_name, shape)] = {
+                "equal": bool(np.array_equal(y, want)), "s": wall, "plan": f"{rep['plan'].path}/{rep['plan'].method}",
+                "retries": rep["overflow_retries"], "cf": rep["capacity_factor"], "a2a_s": secs["all_to_all"],
+                "gather_s": secs["all_gather"], "a2a_bytes": nbytes["all_to_all"], "gather_bytes": nbytes["all_gather"],
+                "launches": dist_launches(before),
+            }
+    finally:
+        for name, fn in originals.items():
+            setattr(rt_ranks, name, fn)
+    out["runtime"] = runtime_on_card(mesh, mesh22)
+    return out
+
+
+def dist_verify_cli() -> None:
+    """``python -m repro_torch.verify --smoke --devices 4`` on the card, in
+    a subprocess: every cell passes, the dist row on 4 ranks over gloo."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "report.json"
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.verify", "--smoke", "--devices", str(DIST_RANKS),
+                            "-q", "--report", str(path)], env=env, capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        if r.returncode != 0 or not path.exists():
+            fail(f"verify --smoke --devices {DIST_RANKS} exited {r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+        report = json.loads(path.read_text())
+    dist_cells = [sid for sid in report["baseline"]["scenarios"] if sid.startswith("dist/")]
+    if report["fails"] or report["cross_check_mismatches"] or len(dist_cells) != 72 or report["backend"] != "gloo":
+        fail(f"verify --devices {DIST_RANKS}: fails {report['fails']}, mismatches "
+             f"{report['cross_check_mismatches']}, {len(dist_cells)} dist cells, backend {report['backend']}")
+    print(f"  (b) verify --smoke --devices {DIST_RANKS}: {report['scenario_count']} cells pass, "
+          f"{len(dist_cells)} of them dist cells on {DIST_RANKS} ranks over {report['backend']}, "
+          f"0 cross-check mismatches, {secs:.1f} s; {r.stdout.strip().splitlines()[-2]}")
+
+
+def distributed_path() -> dict:
+    """Phase 14: the dist path and the runtime over ranks; the launches of
+    (a) and (b), summed over the ranks."""
+    t0 = time.perf_counter()
+    card = smi()
+    print(f"phase 14 (dist path, {card}): gloo stages send/recv of CUDA tensors through host buffers")
+    total = collections.Counter()
+    (one,) = rt_ranks.run_ranks(dist_world_one, (1,), ("data",), backend="nccl", device="cuda",
+                                args=(PAPER_MAX_KEYS,))
+    for method, r in one.items():
+        print(f"  (a) world size 1 over nccl, forced dist/{method}, {PAPER_MAX_KEYS} random int32 keys: "
+              f"{r['s'] * 1e3:.1f} ms, capacity factor {r['cf']}, retries {r['retries']}, "
+              f"equal to np.sort {r['equal']}; launches {r['launches']}")
+        if not r["equal"]:
+            fail(f"(a) dist/{method} differs from np.sort")
+        if not (r["launches"]["bucket_count_rank"] and r["launches"]["sort_tile"]):
+            fail(f"(a) dist/{method} did not launch K1 and K2: {r['launches']}")
+        total.update(r["launches"])
+    dist_verify_cli()
+    per_rank = rt_ranks.run_ranks(dist_four_ranks, (DIST_RANKS,), ("data",), backend="gloo", device="cuda",
+                                  args=(PAPER_MAX_KEYS,))
+    for case in DIST_CASES:
+        rows = [r[case] for r in per_rank]
+        wall = max(r["s"] for r in rows)
+        print(f"  (b) {DIST_RANKS} ranks over gloo, planned {rows[0]['plan']} on {case[1]}, {PAPER_MAX_KEYS} "
+              f"{case[0]} int32 keys: {wall * 1e3:.1f} ms (slowest rank), retries {rows[0]['retries']}, "
+              f"capacity factor {rows[0]['cf']}, all_to_all {max(r['a2a_s'] for r in rows) / wall:.3f} and gathers "
+              f"{max(r['gather_s'] for r in rows) / wall:.3f} of the wall time, bytes a rank hands all_to_all "
+              f"{rows[0]['a2a_bytes']} and the gathers {rows[0]['gather_bytes']}, equal to np.sort on every rank "
+              f"{all(r['equal'] for r in rows)}; launches by rank {[r['launches'] for r in rows]}")
+        if not all(r["equal"] for r in rows):
+            fail(f"(b) {case} differs from np.sort on a rank")
+        if not all(r["launches"]["bucket_count_rank"] and r["launches"]["sort_tile"] for r in rows):
+            fail(f"(b) {case}: a rank did not launch K1 and K2")
+        if any(r["plan"] != rows[0]["plan"] for r in rows):
+            fail(f"(b) {case}: the ranks planned differently")
+        for r in rows:
+            total.update(r["launches"])
+    limits = {"int8_psum": 1e-6, "hierarchical_psum": 1e-6, "pipeline_forward": 1e-5}
+    for name, limit in limits.items():
+        err = max(r["runtime"][name] for r in per_rank)
+        print(f"  (c) {name} on card tensors over {DIST_RANKS} gloo ranks against the CPU: max abs diff {err}")
+        if not err <= limit:
+            fail(f"(c) {name} differs from its CPU run by {err} > {limit}")
+    print(f"phase 14 (dist path): {time.perf_counter() - t0:.1f} s; launches {dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     t_script = time.perf_counter()
     preflight()
@@ -2458,6 +2667,8 @@ def main() -> None:
     if train_counts["bucket_count_rank"] == 0:
         fail("bucket_count_rank never launched on the training path")
     dry_run_against_the_card(train_measured, zamba_parts)
+    dist_counts = {name: 0 for name in KERNELS}
+    dist_counts.update(distributed_path())
 
     launches = {
         **sort_counts,
@@ -2466,14 +2677,14 @@ def main() -> None:
     }
     for name in launches:
         launches[name] += (serve_counts[name] + verify_counts[name] + perf_counts[name] + model_counts[name]
-                           + family_counts[name] + train_counts[name])
+                           + family_counts[name] + train_counts[name] + dist_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
             c[name]
             for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, perf_counts,
-                      model_counts, family_counts, train_counts)
+                      model_counts, family_counts, train_counts, dist_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

@@ -4,9 +4,10 @@ Modules mirror ``repro.core``: topology (OHHC graph) and schedule
 (accumulation schedule) are copies; workloads holds the copied host
 arithmetic of the top-k, pairs and merge operations; pytree maps over
 ``sort_pairs`` payloads; partition (Array Division Procedure), ohhc_sort
-(simulated and host sorts; the Quick Sort counters are numpy copies) and
-engine (the autotuned dispatch layer, with the fault ladder over
-``repro_torch.net``) run on torch tensors.
+(simulated and host sorts; the Quick Sort counters are numpy copies),
+dist_sort (the sort over ranks, ``torch.distributed``) and engine (the
+autotuned dispatch layer, with the fault ladder over ``repro_torch.net``)
+run on torch tensors; sample_sort holds the exchange's cost model.
 """
 
 from repro_torch.core.topology import OHHCTopology, table_1_1, HHC_SIZE
@@ -42,6 +43,7 @@ from repro_torch.core.workloads import (
     merge_sorted_arrays,
     topk_cut,
 )
+from repro_torch.core.dist_sort import dist_sort, host_check_globally_sorted
 from repro_torch.core.engine import (
     BITONIC_METHODS,
     ROW_BACKENDS,
@@ -100,4 +102,6 @@ __all__ = [
     "host_top_k",
     "merge_sorted_arrays",
     "topk_cut",
+    "dist_sort",
+    "host_check_globally_sorted",
 ]

@@ -48,8 +48,13 @@ keeps the path and prices the gather over the rebuilt schedule
 per-segment host sort, so no kernel runs.  The classification and the
 prices are pure Python, cached per scenario name and size bucket.
 
-Not in this slice: the dist path over a mesh (it raises
-``NotImplementedError``).
+The dist path (``SortEngine(mesh=...)``, a ``DeviceMesh`` of ranks that
+each run the engine, SPMD) plans with the reference's mesh rules (``hier``
+on two or more axes, else ``valiant`` / ``sample`` / ``paper``) and sorts
+through ``repro_torch.core.dist_sort``: K1 buckets every rank's shard, one
+``all_to_all`` per hop exchanges the rows, K2/K3 sort what each rank
+received.  Every rank passes the same array and gets the whole sorted
+array back, all-gathered from the shards.
 """
 
 from __future__ import annotations
@@ -66,11 +71,13 @@ import torch
 
 from repro_torch import dtypes
 from repro_torch.core import partition, pytree, workloads
+from repro_torch.core.dist_sort import dist_sort_keys
 from repro_torch.core.ohhc_sort import ohhc_sort_host
 from repro_torch.core.topology import OHHCTopology
 from repro_torch.core.workloads import TopKTooLarge
 from repro_torch.kernels import batched as batched_kernels
 from repro_torch.kernels import bitonic, ops
+from repro_torch.runtime import ranks
 
 # Granularity cap for stats histograms: coarser than P only ever
 # *over*-estimates the max bucket fraction (refining buckets can't raise it).
@@ -774,12 +781,6 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-_DIST_TODO = (
-    "the dist path over a mesh is not ported yet "
-    "(ROADMAP.md, Queue 1, 'Dist path')"
-)
-
-
 # --------------------------------------------------------------------------
 # The engine
 # --------------------------------------------------------------------------
@@ -799,10 +800,15 @@ class SortEngine:
     fault_scenario:  a ``repro_torch.net.faults.FaultScenario`` to serve
                      under (``None``: healthy); see ``set_fault_scenario``.
     device:          ``None`` or ``"cuda"`` runs on the card and raises when
-                     there is none; ``"cpu"`` runs the kernels' plain
-                     versions on the CPU.
-    mesh:            not ported yet; anything but ``None`` raises
-                     ``NotImplementedError``.
+                     there is none (with a mesh, the rank's own card,
+                     ``rank % device_count`` as ``runtime.ranks.run_ranks``
+                     sets it); ``"cpu"`` runs the kernels' plain versions on
+                     the CPU.
+    mesh/axis_names: a ``DeviceMesh`` of the ranks that call this engine
+                     together (``runtime.ranks``) and the mesh dims the
+                     array is sharded over; when the mesh has more than one
+                     rank, ``plan`` chooses the dist path.  Its device type
+                     must be the engine's.
     """
 
     def __init__(
@@ -810,6 +816,7 @@ class SortEngine:
         topo: OHHCTopology | None = None,
         *,
         mesh=None,
+        axis_names: Sequence[str] = ("data",),
         host_threshold: int = 1 << 20,
         sample_size: int = 2048,
         margin: float = 1.25,
@@ -817,9 +824,14 @@ class SortEngine:
         fault_scenario=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_DIST_TODO)
         self.device = _resolve_device(device)
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for an engine on {self.device}")
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = ranks.mesh_device(mesh)
+        self.mesh = mesh
+        self.axis_names = tuple(axis_names)
         self.topo = topo if topo is not None else OHHCTopology(1, "full")
         self.host_threshold = int(host_threshold)
         self.sample_size = int(sample_size)
@@ -972,9 +984,18 @@ class SortEngine:
         plan = choose_plan(
             stats,
             self.topo,
+            mesh_devices=self.mesh.size() if self.mesh is not None else 1,
+            mesh_axes=self.axis_names if self.mesh is not None else (),
             host_threshold=self.host_threshold,
             margin=self.margin,
         )
+        if plan.path == "dist":
+            plan = dataclasses.replace(
+                plan,
+                comm_sim_s=self.comm_cost_estimate(
+                    stats.n, itemsize=np.dtype(stats.dtype).itemsize
+                ),
+            )
         return self._apply_fault(
             plan, n=stats.n, itemsize=np.dtype(stats.dtype).itemsize
         )
@@ -1041,8 +1062,8 @@ class SortEngine:
             plan = self.plan(x_np, stats)  # fault ladder applied inside
         else:
             # Forced plans go through the same ladder: an impossible
-            # scenario rewrites even an explicit sim plan onto the healthy
-            # host path (DESIGN.md §11).
+            # scenario rewrites even an explicit sim or dist plan onto the
+            # healthy host path (DESIGN.md §11).
             plan = self._apply_fault(plan, n=n, itemsize=x_np.dtype.itemsize)
         if plan.path == "host":
             r = ohhc_sort_host(x_np, self.topo, method=plan.method)
@@ -1053,7 +1074,7 @@ class SortEngine:
             }
             return r.sorted_array
         if plan.path == "dist":
-            raise NotImplementedError(_DIST_TODO)
+            return self._sort_dist(x_np, plan, stats)
         return self._sort_sim(x_np, plan, stats)
 
     def _sort_sim(self, x_np: np.ndarray, plan: SortPlan, stats) -> np.ndarray:
@@ -1607,3 +1628,62 @@ class SortEngine:
             "inner_plan": inner_plan,
         }
         return out
+
+    # ------------------------------------------------------------------ dist
+    def _sort_dist(self, x_np: np.ndarray, plan: SortPlan, stats) -> np.ndarray:
+        """``dist_sort`` over the mesh, escalating the capacity factor on
+        overflow; every rank gets the whole sorted array."""
+        if self.mesh is None:
+            raise ValueError("a dist plan needs SortEngine(mesh=...)")
+        if stats is None:
+            stats = self.stats(x_np)
+        sizes = ranks.mesh_sizes(self.mesh)
+        num_shards = math.prod(sizes[ax] for ax in self.axis_names)
+        n = x_np.size
+        pad = (-n) % num_shards
+        if pad:
+            fill = (
+                np.iinfo(x_np.dtype).max
+                if np.issubdtype(x_np.dtype, np.integer)
+                else np.inf
+            )
+            x_np = np.concatenate([x_np, np.full(pad, fill, x_np.dtype)])
+        f_hat = stats.f_max_sampled if plan.method != "paper" else stats.f_max_paper
+        cf = max(2.0, self.margin * f_hat * num_shards * 2.0)
+        keys = dtypes.to_keys(x_np)
+        group = ranks.axis_group(self.mesh, self.axis_names)
+        retries = 0
+        while True:
+            vals, count = dist_sort_keys(
+                keys, x_np.dtype, mesh=self.mesh, axis_names=self.axis_names,
+                method=plan.method, capacity_factor=cf, local_sort=self.local_sort,
+                device=self.device,
+            )
+            counts = ranks.all_gather(count.new_empty(num_shards), count, group).cpu().numpy()
+            if int(counts.sum()) == x_np.size:
+                break
+            # Overflow drops elements (dist_sort contract); escalate like
+            # the sim path.  cf == num_shards cannot overflow: every dest
+            # row then holds a sender's whole shard.
+            if cf >= num_shards:
+                raise AssertionError("dist overflow at capacity_factor == shards")
+            cf = min(float(num_shards), cf * 2.0)
+            retries += 1
+        # every rank reads the global array, as a jax process does
+        shards = ranks.all_gather(vals.new_empty(num_shards * vals.shape[0]), vals, group)
+        shards = shards.cpu().numpy().reshape(num_shards, -1)
+        out = np.concatenate([sh[: int(c)] for sh, c in zip(shards, counts)])
+        self.last_report = {
+            "plan": plan, "n": n, "stats": stats,
+            # counts includes the shard-divisibility pad (max-sentinel
+            # elements that sort to the tail and are sliced off below);
+            # report caller elements so conservation means counts_sum == n.
+            "counts_sum": int(counts.sum()) - pad, "overflow_retries": retries,
+            "capacity_factor": cf,
+            "comm_sim_s": (
+                plan.comm_sim_s
+                if plan.comm_sim_s is not None
+                else self.comm_cost_estimate(n, itemsize=x_np.dtype.itemsize)
+            ),
+        }
+        return dtypes.from_keys(out[:n], x_np.dtype)

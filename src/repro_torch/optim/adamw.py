@@ -5,9 +5,9 @@ so it never holds two copies of the parameters.  The port's counterpart
 updates each leaf in place under ``torch.no_grad()``: parameters, ``m``
 and ``v`` are written where they lie, and each gradient leaf's buffer is
 reused for that leaf's step.  Peak memory therefore stays at parameters +
-gradients + moments, plus one leaf.  The reference's
-``opt_state_specs`` (the moments' ``PartitionSpec``s) waits for the dist
-path: without a mesh nothing is sharded.
+gradients + moments, plus one leaf.  ``opt_state_specs`` gives the
+moments' ``Spec`` tree, which ``repro_torch.runtime.reshard_state`` lays
+onto a mesh.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import Spec, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,3 +71,7 @@ def adamw_update(params, grads, state: dict, lr: torch.Tensor, cfg: AdamWConfig 
                 p.copy_(p32.sub_(step.mul_(lr)))
     return {"grad_norm": gnorm, "clip_scale": scale}
 
+
+def opt_state_specs(param_specs):
+    """m/v shard exactly like their parameters; count is replicated."""
+    return {"m": param_specs, "v": param_specs, "count": Spec()}

@@ -115,5 +115,8 @@ def jit_train_step(train_step, mesh=None):
     """The reference jits the step with donated buffers; the port's step
     already runs eagerly in place, so it is returned as it is."""
     if mesh is not None:
-        raise NotImplementedError("a train step over a mesh waits for the dist path (ROADMAP.md, Queue 1, 'Dist path')")
+        raise NotImplementedError(
+            "a train step over a mesh (FSDP x TP on DTensor) waits for the model layer over a mesh "
+            "(ROADMAP.md, Queue 1, 'Model layer over a mesh')"
+        )
     return train_step

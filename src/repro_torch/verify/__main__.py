@@ -16,10 +16,16 @@ Usage::
     PYTHONPATH=src python -m repro_torch.verify --smoke --device cpu --update-baseline
     PYTHONPATH=src python -m repro_torch.verify --full
     PYTHONPATH=src python -m repro_torch.verify --smoke --filter uint32
+    PYTHONPATH=src python -m repro_torch.verify --smoke --devices 4
 
 ``--device cuda`` (the default) runs every engine on the card and raises
 where there is none; ``--device cpu`` runs the kernels' plain versions.
-The dist path is not ported, so ``--devices N`` with N > 1 exits non-zero.
+``--devices N`` adds the grid's dist cells (``smoke_grid(devices=N,
+mesh_axes=2 if N ≥ 4 and N is even else 1)``, as the reference runner) and
+runs them on N spawned ranks (``runtime.ranks.run_ranks``); every other
+cell runs here, once.  The ranks' backend follows one rule, and the
+summary line names it: gloo on the CPU, nccl when every rank has a card
+of its own, gloo when ranks share a card.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ def parse_args(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where every engine runs (cpu: the kernels' plain versions)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="mesh size for dist scenarios (only 1: the dist path is not ported)")
+                    help="ranks for the dist scenarios (spawned; 1: no dist cells)")
     ap.add_argument("--filter", default=None,
                     help="substring filter on scenario ids")
     ap.add_argument("--baseline", default=None,
@@ -159,13 +165,18 @@ def run_sortd_slice(args) -> int:
     return 1 if fails else 0
 
 
+def ranks_backend(args) -> str:
+    """gloo on the CPU or where ranks share a card, else nccl (one rank a
+    card)."""
+    if args.device == "cpu":
+        return "gloo"
+    import torch
+
+    return "nccl" if args.devices <= torch.cuda.device_count() else "gloo"
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.devices > 1:
-        from repro_torch.core.engine import _DIST_TODO
-
-        print(f"refusing --devices {args.devices}: {_DIST_TODO}")
-        return 2
     if args.sortd:
         return run_sortd_slice(args)
 
@@ -179,9 +190,10 @@ def main(argv=None) -> int:
     # the property battery's engine; built first, so a run on a missing
     # card fails before any cell
     eng = SortEngine(OHHCTopology(1, "full"), device=args.device)
+    mesh_axes = 2 if args.devices >= 4 and args.devices % 2 == 0 else 1
     if args.full:
         mode = "full"
-        scenarios = grid.full_grid()
+        scenarios = grid.full_grid(devices=args.devices, mesh_axes=mesh_axes)
         segments = grid.segment_smoke_grid()
         faults = grid.fault_grid()
         ops_cells = grid.op_smoke_grid()
@@ -201,11 +213,11 @@ def main(argv=None) -> int:
         ops_cells = []
     else:
         mode = "smoke"
-        scenarios = grid.smoke_grid()
+        scenarios = grid.smoke_grid(devices=args.devices, mesh_axes=mesh_axes)
         segments = grid.segment_smoke_grid()
         faults = grid.fault_grid()
         ops_cells = grid.op_smoke_grid()
-    pruned = grid.pruned_cells()
+    pruned = grid.pruned_cells(devices=args.devices, mesh_axes=mesh_axes)
     if args.filter:
         scenarios = [sc for sc in scenarios if args.filter in sc.scenario_id]
         segments = [sc for sc in segments if args.filter in sc.scenario_id]
@@ -218,19 +230,22 @@ def main(argv=None) -> int:
         else (DEFAULT_BASELINE if mode in ("smoke", "tier1", "degraded") else "")
         or f"verify_{mode}_baseline.json"
     )
-    # The committed smoke baseline records the smoke grid; gate against it
-    # only when this run executes that same grid (or a filtered/tier1/
-    # degraded subset of it).
+    # The committed smoke baseline records the devices=1 grid; gate against
+    # it only when this run executes that same grid (or a filtered/tier1/
+    # degraded subset of it) — a multi-rank sweep adds dist cells the
+    # baseline legitimately doesn't carry, which is coverage, not drift.
     subset_run = bool(args.filter) or mode in ("tier1", "degraded")
-    comparable = args.baseline is not None or mode in ("smoke", "tier1", "degraded")
+    comparable = args.baseline is not None or (
+        mode in ("smoke", "tier1", "degraded") and args.devices == 1
+    )
     if args.update_baseline and baseline_path.resolve() == DEFAULT_BASELINE.resolve() and (
-        subset_run or mode != "smoke"
+        subset_run or args.devices != 1 or mode != "smoke"
     ):
-        # Never let a partial run silently shrink the committed smoke
-        # baseline out from under CI; refuse up front.
+        # Never let a partial or differently-configured run silently shrink
+        # the committed smoke baseline out from under CI; refuse up front.
         print(
             "refusing --update-baseline: the committed smoke baseline must "
-            "be recorded by a plain `--smoke` run (no --filter); "
+            "be recorded by a plain `--smoke` run (no --filter, --devices 1); "
             "pass --baseline PATH to record elsewhere"
         )
         return 2
@@ -249,7 +264,26 @@ def main(argv=None) -> int:
             )
 
     engines = differential.EngineCache(device=args.device)
-    results = differential.run_grid(scenarios, progress=progress, engines=engines)
+    dist_cells = [sc for sc in scenarios if sc.path == "dist"]
+    backend = ranks_backend(args) if dist_cells else None
+    results = differential.run_grid(
+        [sc for sc in scenarios if sc.path != "dist"], progress=progress, engines=engines
+    )
+    if dist_cells:
+        from repro_torch.runtime.ranks import run_ranks
+
+        # every rank runs every dist cell (SPMD); a cell fails if it
+        # failed on any rank, and reports rank 0's outcome otherwise
+        per_rank = run_ranks(
+            differential.run_dist_cells, (args.devices,), ("data",), backend=backend,
+            device=args.device, args=(dist_cells, args.device),
+        )
+        by_id = {r.scenario_id: r for r in results}
+        for cell in zip(*per_rank):
+            r = next((r for r in cell if r.status != "pass"), cell[0])
+            by_id[r.scenario_id] = r
+            progress(r)
+        results = [by_id[sc.scenario_id] for sc in scenarios]
     # Segmented-batch cells ride the same result stream: cross_check then
     # asserts byte-agreement between the library row backend and both
     # variants of the row kernel (shared group_id), and the baseline gates
@@ -317,6 +351,8 @@ def main(argv=None) -> int:
         report = {
             "mode": mode,
             "device": args.device,
+            "devices": args.devices,
+            "backend": backend,
             "elapsed_s": elapsed,
             "scenario_count": len(results),
             "pruned_count": len(pruned),
@@ -344,6 +380,7 @@ def main(argv=None) -> int:
         f"{len(pruned)} cells pruned, {len(mismatches)} cross-check mismatches, "
         f"{len(prop_results) - len(prop_fails)}/{len(prop_results)} property checks "
         f"pass, {elapsed:.1f}s on {eng.device}"
+        + (f"; {len(dist_cells)} dist cells on {args.devices} ranks over {backend}" if dist_cells else "")
     )
     rc = 0
     if fails or mismatches or prop_fails:
@@ -370,8 +407,8 @@ def main(argv=None) -> int:
         rc = 1
     elif not args.update_baseline:
         print(
-            "baseline: not gated (the full grid has no committed baseline; "
-            "pass --baseline to compare anyway)"
+            "baseline: not gated (grid config differs from the committed "
+            "devices=1 smoke baseline; pass --baseline to compare anyway)"
         )
     return rc
 

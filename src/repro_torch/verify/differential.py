@@ -9,7 +9,9 @@ whatever ``choose_plan`` would have picked.  Engines are cached per
 topology so the warm executor cache works *for* the sweep: two scenarios
 in the same shape bucket share one executor.  Every engine runs on the
 card unless the cache is asked for the CPU (``EngineCache(device="cpu")``),
-where the kernels' wrappers take their plain versions.
+where the kernels' wrappers take their plain versions.  Dist cells run
+inside a group of ranks (``EngineCache(devices=N)`` on every rank, SPMD;
+:func:`run_dist_cells` is the ranks' entry).
 
 Checks per scenario:
 
@@ -30,7 +32,7 @@ from typing import Callable, Sequence
 import numpy as np
 
 from repro_torch.core import OHHCTopology, SortEngine, SortPlan, autotune_capacity
-from repro_torch.core.engine import _DIST_TODO
+from repro_torch.runtime import ranks
 from repro_torch.verify.grid import (
     FAULT_IMPOSSIBLE,
     FaultCell,
@@ -62,25 +64,42 @@ class ScenarioResult:
 
 
 class EngineCache:
-    """One SortEngine per (d_h, variant) — shared executor caches.
+    """One SortEngine per (d_h, variant, needs-mesh) — shared executor caches.
 
     ``device`` is every engine's device: ``None`` (the card) or ``"cpu"``.
-    The dist path over a mesh is not ported: ``devices > 1`` and a dist
-    scenario raise ``NotImplementedError`` rather than being pruned.
+    ``devices > 1`` builds the meshes of the dist cells, the 1-axis
+    ``("data",)`` and the 2-axis ``("pod", "data")`` one, over the group of
+    ``devices`` ranks that every rank builds this cache in
+    (``runtime.ranks.run_ranks``).
     """
 
     def __init__(self, *, devices: int = 1, device=None):
-        if int(devices) > 1:
-            raise NotImplementedError(_DIST_TODO)
         self.devices = int(devices)
         self.device = device
         self._engines: dict[tuple, SortEngine] = {}
+        self._meshes: dict[int, object] = {}
+
+    def mesh(self, axes: int):
+        import torch.distributed as dist
+
+        if not (dist.is_initialized() and dist.get_world_size() == self.devices):
+            raise ValueError(
+                f"dist cells run on a group of {self.devices} ranks: build "
+                f"EngineCache(devices={self.devices}) on every rank of one (runtime.ranks.run_ranks)"
+            )
+        if axes not in self._meshes:
+            device_type = "cpu" if self.device == "cpu" else "cuda"
+            if axes >= 2:
+                self._meshes[axes] = ranks.make_mesh((2, self.devices // 2), ("pod", "data"), device_type)
+            else:
+                self._meshes[axes] = ranks.make_mesh((self.devices,), ("data",), device_type)
+        return self._meshes[axes]
 
     def segment_engine(self) -> SortEngine:
         """The shared single-box engine the segment cells run on (d_h=1 —
         the segment path's method is forced per cell, so topology only
         sizes the never-used bucket fallback)."""
-        key = (1, "full")
+        key = (1, "full", False, 1)
         eng = self._engines.get(key)
         if eng is None:
             eng = self._engines[key] = SortEngine(
@@ -102,14 +121,24 @@ class EngineCache:
         return eng
 
     def engine_for(self, sc: Scenario) -> SortEngine:
-        if sc.path == "dist":
-            raise NotImplementedError(_DIST_TODO)
-        key = (sc.d_h, sc.variant)
+        mesh_axes = 2 if (sc.path == "dist" and sc.method == "hier") else 1
+        key = (sc.d_h, sc.variant, sc.path == "dist", mesh_axes)
         eng = self._engines.get(key)
         if eng is None:
             topo = OHHCTopology(sc.d_h, sc.variant)
-            eng = self._engines[key] = SortEngine(topo, device=self.device)
+            if sc.path == "dist":
+                mesh = self.mesh(mesh_axes)
+                eng = SortEngine(topo, mesh=mesh, axis_names=mesh.mesh_dim_names, device=self.device)
+            else:
+                eng = SortEngine(topo, device=self.device)
+            self._engines[key] = eng
         return eng
+
+
+def run_dist_cells(mesh, scenarios: Sequence[Scenario], device) -> list[ScenarioResult]:
+    """The ranks' entry for ``--devices N``: every rank runs every dist
+    cell on its own ``EngineCache(devices=N)`` (``mesh`` only fixes N)."""
+    return run_grid(scenarios, engines=EngineCache(devices=mesh.size(), device=device))
 
 
 def forced_plan(eng: SortEngine, sc: Scenario, x: np.ndarray) -> SortPlan:

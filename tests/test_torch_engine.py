@@ -226,16 +226,38 @@ def test_sort_many_and_tensor_input(port, monkeypatch):
     assert port.sort(np.array([5], np.int32)).tolist() == [5]
 
 
+def _forced_dist_plans(mesh):
+    """Every dist method forced on a 1-rank mesh: (method, equal to np.sort,
+    counts_sum) each; ``hier`` on a (1, 1) mesh."""
+    from repro_torch.runtime import ranks
+
+    engines = {
+        "flat": SortEngine(mesh=mesh, device="cpu"),
+        "hier": SortEngine(mesh=ranks.make_mesh((1, 1), ("pod", "data"), "cpu"), axis_names=("pod", "data"), device="cpu"),
+    }
+    x = make_array("random", 3001, seed=30)
+    out = []
+    for method in ("paper", "sample", "valiant", "hier"):
+        eng = engines["hier" if method == "hier" else "flat"]
+        y = eng.sort(x, plan=SortPlan("dist", method, None, None, "forced"))
+        out.append((method, np.array_equal(y, np.sort(x)), eng.last_report["counts_sum"]))
+    return out
+
+
 def test_dist_and_faults_are_not_in_this_slice(port):
-    """The dist path is still to be ported; the fault ladder now is (held
-    against the reference scenario by scenario in test_torch_faults.py)."""
-    with pytest.raises(NotImplementedError, match="Dist path"):
-        SortEngine(device="cpu", mesh=object())
+    """A forced dist plan on a 1-rank gloo mesh equals ``np.sort`` (the
+    multi-rank dist path is held to the reference in
+    test_torch_dist_engine.py); the fault ladder is held against the
+    reference scenario by scenario in test_torch_faults.py."""
+    from repro_torch.runtime import ranks
+
+    (got,) = ranks.run_ranks(_forced_dist_plans, (1,), ("data",), backend="gloo", device="cpu")
+    assert got == [(m, True, 3001) for m in ("paper", "sample", "valiant", "hier")]
     sc = FaultScenario.optical_link_down(1)
     assert SortEngine(device="cpu", fault_scenario=sc).fault_scenario is sc
     port.set_fault_scenario(sc)
     assert port.plan(make_array("random", 3000, seed=29)).fault == sc.name
     port.set_fault_scenario(None)
     assert port.plan(make_array("random", 3000, seed=29)).fault is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         port.sort(np.arange(10), plan=SortPlan("dist", "paper", None, None, "forced"))

@@ -38,6 +38,9 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import repro_torch.perf, repro_torch.perf.__main__, repro_torch.roofline, repro_torch.roofline.analysis\n"
         "import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.launch.dryrun, repro_torch.launch.diag\n"
         "import repro_torch.roofline.report, repro_torch.roofline.gen_experiments\n"
+        "import repro_torch.core.dist_sort, repro_torch.core.sample_sort\n"
+        "import repro_torch.runtime, repro_torch.runtime.ranks, repro_torch.runtime.collectives\n"
+        "import repro_torch.runtime.elastic, repro_torch.runtime.pipeline\n"
         "from repro_torch.configs import registry\n"
         "for arch in registry.ARCHS: registry.get_model_api(registry.get_config(arch))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -47,6 +50,13 @@ def test_importing_the_port_loads_no_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "clean"
+
+
+def test_the_dist_modules_are_checked():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES if "repro_torch" in p.parts}
+    for mod in ("core/dist_sort.py", "core/sample_sort.py", "runtime/__init__.py", "runtime/ranks.py",
+                "runtime/collectives.py", "runtime/elastic.py", "runtime/pipeline.py"):
+        assert mod in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -331,11 +331,27 @@ def test_tier1_cell_equals_the_jax_runner(kind, sc, runners, monkeypatch):
 
 
 # ---------------------------------------------------------------- the dist rule
+def _engine_cache_in_a_rank_group(mesh):
+    engines = EngineCache(devices=mesh.size(), device="cpu")
+    meshes = {axes: (tuple(engines.mesh(axes).mesh.shape), engines.mesh(axes).mesh_dim_names) for axes in (1, 2)}
+    cells = [Scenario("dist", m, "uint32", "random", 1024, 1) for m in ("paper", "sample", "valiant", "hier")]
+    return meshes, [(r.status, r.counts_sum) for r in differential.run_grid(cells, engines=engines)]
+
+
 def test_the_dist_path_raises_rather_than_prunes():
-    with pytest.raises(NotImplementedError, match="Dist path"):
-        EngineCache(devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Dist path"):
+    """``EngineCache(devices=2)`` builds its meshes inside a group of 2
+    ranks and runs the dist cells there; outside one it raises, and a
+    dist cell on a ``devices=1`` cache is not pruned but raises."""
+    from repro_torch.runtime import ranks
+
+    with pytest.raises(ValueError, match="group of 2 ranks"):
+        EngineCache(devices=2, device="cpu").mesh(1)
+    with pytest.raises(ValueError, match="group of 1 ranks"):
         cpu_engines().engine_for(Scenario("dist", "paper", "int32", "random", 1024, 1))
+    for meshes, results in ranks.run_ranks(_engine_cache_in_a_rank_group, (2,), ("data",), backend="gloo",
+                                             device="cpu"):
+        assert meshes == {1: ((2,), ("data",)), 2: ((2, 1), ("pod", "data"))}
+        assert results == [("pass", 1024)] * 4
 
 
 # ------------------------------------------------------------------ the CLI
@@ -368,9 +384,17 @@ def test_cli_fails_on_a_changed_baseline_field(tmp_path):
 
 
 def test_cli_refuses_more_devices_naming_the_dist_item():
-    r = _cli("--smoke", "--device", "cpu", "--devices", "2")
-    assert r.returncode != 0
-    assert "Dist path" in r.stdout and "verify[" not in r.stdout
+    """``--devices 4`` runs the reference's 4-device smoke grid (its dist
+    row on 4 spawned gloo ranks, the rest here) and every cell passes."""
+    r = _cli("--smoke", "--device", "cpu", "--devices", "4", "-q")
+    assert r.returncode == 0, r.stdout + r.stderr
+    cells = (len(jgrid.smoke_grid(devices=4, mesh_axes=2)) + len(jgrid.segment_smoke_grid())
+             + len(jgrid.fault_grid()) + len(jgrid.op_smoke_grid()))
+    dist = sum(sc.path == "dist" for sc in jgrid.smoke_grid(devices=4, mesh_axes=2))
+    assert dist == 72
+    assert f"verify[smoke]: {cells}/{cells} scenarios pass" in r.stdout
+    assert "0 cross-check mismatches, 49/49 property checks pass" in r.stdout
+    assert f"{dist} dist cells on 4 ranks over gloo" in r.stdout
 
 
 def test_cli_refuses_to_overwrite_the_committed_baseline_from_a_subset():
