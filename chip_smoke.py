@@ -169,11 +169,31 @@ no result line):
    (c) ``int8_psum`` and ``hierarchical_psum`` (within 1e-6) and a
    4-stage ``pipeline_forward`` (within 1e-5) on card tensors over the 4
    ranks, held to the same calls on CPU tensors;
-15. a ``kernels`` JSON line with each kernel's launches on its path
+15. the model layer over a mesh (``jit_train_step(step, mesh,
+   state_specs, batch_specs)``, FSDP x TP on DTensor), DeepSeek-V2-Lite
+   at full width with its production ``shard_map`` MoE dispatch (K1 on
+   each rank's own tokens at the local capacity, one all-reduce over the
+   tensor axis), after phase 14: (a) world size 1 over NCCL on a (1, 1, 1)
+   mesh, phase 11's cut (4 of 27 layers, 2 x 4,096 tokens, remat), 3
+   steps: finite losses, exactly 8 launches of K1 a step, step 1's loss
+   and grad_norm equal in bits to the unsharded ``sorted`` step on the
+   same state and batch (both under deterministic algorithms), step ms
+   and max allocated beside phase 11's; (b) 4 ranks sharing the card
+   over gloo on (1, 2, 2), 2 of 27 layers, 4 x 1,024 tokens, 2 steps on
+   one batch without warmup, each rank drawing the parameters from one
+   seed and keeping its shard: finite losses, the same metrics on every
+   rank, 4 launches of K1 a step on each; against the same model's two
+   unsharded steps on the card, relative, step 1's loss within 1e-3, its
+   grad_norm within 1e-3 and the loss step 1's update took off the batch
+   within 1e-1 (limits set between the sound run's readings and planted
+   faults', ``tools/mesh_fault_readings.py``); step 1's share of the wall
+   time in DTensor's redistributions (clocked, synchronised), step 2's
+   ms unclocked;
+16. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
-   7, 8, 9, 10, 11, 12 (a) and (b) and 14 (a) and (b), summed over the
-   ranks; the untagged pair kernel and the
+   7, 8, 9, 10, 11, 12 (a) and (b), 14 (a) and (b) and 15 (a) and (b),
+   summed over the ranks; the untagged pair kernel and the
    pair row kernel have no caller on any path and are checked in phase 2 only), each
    kernel's device time and launches a call (the script fails if the
    profiler gave none after three sessions), and K1's times at the
@@ -239,7 +259,15 @@ from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
-from repro_torch.train.train_step import make_grad_fn  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    init_train_state,
+    jit_train_step,
+    make_grad_fn,
+    make_train_step,
+)
+from repro_torch.launch import sharding  # noqa: E402
+from repro_torch.models.common import distribute, mesh_zeros, spec_map  # noqa: E402
+from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.runtime import hierarchical_psum, int8_psum  # noqa: E402
@@ -2609,6 +2637,239 @@ def distributed_path() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------- phase 15
+MESH_ARCH = TRAIN_ARCH  # its production MoE dispatch is shard_map
+MESH_ONE_STEPS = 3  # (a): phase 11's cut (4 of 27 layers, 2 x 4,096 tokens, remat)
+# (b): 2 of 27 layers, a batch of 4 x 1,024, on (1, 2, 2) over 4 ranks sharing the card; step 2 runs on
+# step 1's batch, so its loss shows how far step 1's update moved the model
+MESH_FOUR, MESH_FOUR_LAYERS, MESH_FOUR_BATCH, MESH_FOUR_SEQ, MESH_FOUR_STEPS = (1, 2, 2), 2, 4, 1024, 2
+# (b)'s limits against the unsharded steps, relative: step 1's loss and grad_norm, and the loss that step
+# 1's update took off the batch.  Each lies between the sound run's gap and the planted faults' that it
+# catches (tools/mesh_fault_readings.py, PERF.md): sound 4.46e-4, 3.07e-5, 3.29e-2; the tensor axis's
+# all-reduce skipped -, 1.10e-2, -; a replicated leaf's norm counted per rank -, 1.32e-1, -; the global
+# capacity in place of the local 1.98e-3, 7.53e-3, 1.79e-1
+MESH_FOUR_GAP = {"loss": 1e-3, "grad_norm": 1e-3, "drop": 1e-1}
+MESH_NAMES = ("pod", "data", "model")
+
+
+def mesh_run(cfg, batch: int, seq: int):
+    """No warmup: step 1 updates at the peak rate, so step 2's loss moves."""
+    return RunConfig(model=cfg, shape=ShapeConfig("train", seq, batch, "train"), warmup_steps=0, total_steps=6)
+
+
+def unsharded_steps(cfg, run, batches: list) -> list:
+    """Unsharded train steps (no mesh: the shard_map dispatch runs
+    ``sorted``) on the state made from seed 0, one a batch; each step's
+    metrics as floats and its loss's and grad_norm's bits."""
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(0), cfg, run, lm)
+    step = make_train_step(cfg, run, lm)
+    out = []
+    for batch in batches:
+        state, m = step(state, batch)
+        out.append({k: float(v) for k, v in m.items()})
+        out[-1]["bits"] = (int(bits(m["loss"])), int(bits(m["grad_norm"])))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_four_model():
+    """(b)'s config, run and batch."""
+    cfg = registry.get_config(MESH_ARCH).replace(num_layers=MESH_FOUR_LAYERS)
+    run = mesh_run(cfg, MESH_FOUR_BATCH, MESH_FOUR_SEQ)
+    return cfg, run, SyntheticLMData(cfg, MESH_FOUR_BATCH, MESH_FOUR_SEQ, seed=0, device=DEV).next_batch()
+
+
+def mesh_four_gaps(metrics: list, ref: list) -> dict:
+    """(b)'s readings against the unsharded steps, relative: step 1's loss
+    and grad_norm, and the loss that step 1's update took off the batch
+    (step 1's loss less step 2's, on the same batch)."""
+    gap = {k: abs(metrics[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ("loss", "grad_norm")}
+    drop, ref_drop = (m[0]["loss"] - m[1]["loss"] for m in (metrics, ref))
+    gap["drop"] = abs(drop - ref_drop) / abs(ref_drop)
+    return gap
+
+
+def mesh_world_one(mesh) -> dict:
+    """Phase 15 (a), the one rank of an NCCL group on a (1, 1, 1) mesh:
+    phase 11's DeepSeek-V2-Lite (4 layers, 2 x 4,096 tokens) with the
+    ``shard_map`` dispatch, 3 steps through ``jit_train_step(mesh=...)``;
+    first the unsharded step on the same state and batch.  Both first
+    steps run with deterministic algorithms (the index backward's atomic
+    adds would otherwise reorder sums), the timed steps 2 and 3 without."""
+    cfg = registry.get_config(MESH_ARCH).replace(num_layers=TRAIN_LAYERS)
+    run = mesh_run(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEV)
+    batches = [data.next_batch() for _ in range(MESH_ONE_STEPS)]
+    torch.use_deterministic_algorithms(True)
+    reset_launches()
+    (plain,) = unsharded_steps(cfg, run, batches[:1])
+    plain_k1 = launch_counts()["bucket_count_rank"]
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(0), cfg, run, lm)
+    rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, state["params"])
+    step = jit_train_step(make_train_step(cfg, run, lm, rules), mesh, sspecs, bspecs)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls, per_step = [], [], []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.use_deterministic_algorithms(False)
+        before = launch_counts()["bucket_count_rank"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(launch_counts()["bucket_count_rank"] - before)
+        if i == 0:
+            first_bits = (int(bits(m["loss"])), int(bits(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated()
+    placements = str(state["params"]["blocks"]["moe"]["wi"].placements)
+    del state, step
+    return {"plain": plain, "plain_k1": plain_k1, "metrics": metrics, "first_bits": first_bits, "walls": walls,
+            "per_step": per_step, "peak": peak, "wi": placements, "launches": dict(launch_counts())}
+
+
+def clock_redistributions(secs: list):
+    """Wrap DTensor's one redistribution function (every collective of a
+    ``redistribute``, forward and backward) to add its synchronised
+    seconds to ``secs[0]``; returns the undo, or ``None`` where this torch
+    has no such function."""
+    from torch.distributed.tensor import _redistribute
+
+    original = getattr(_redistribute, "redistribute_local_tensor", None)
+    if original is None:
+        return None
+
+    def clocked(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(*a, **k)
+        if hasattr(out, "wait"):
+            out = out.wait()
+        torch.cuda.synchronize()
+        secs[0] += time.perf_counter() - t0
+        return out
+
+    _redistribute.redistribute_local_tensor = clocked
+    return lambda: setattr(_redistribute, "redistribute_local_tensor", original)
+
+
+def mesh_four_ranks(mesh) -> dict:
+    """Phase 15 (b) on one of 4 ranks sharing the card over gloo, mesh
+    (1, 2, 2): DeepSeek-V2-Lite at full width, 2 layers, 4 x 1,024 tokens,
+    2 steps on one batch.  Each rank draws the whole parameter tree from
+    seed 0 and keeps its shard (the moments are made on the shards), so
+    the card never holds 4 whole states.  Step 1 runs with DTensor's
+    redistributions clocked (their share), step 2 without (its time)."""
+    cfg, run, batch = mesh_four_model()
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, params)
+    params = spec_map(lambda s, x: distribute(x, s, mesh), sspecs["params"], params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = {"params": params, "opt": adamw_init(params), "step": mesh_zeros(mesh, torch.int32)}
+    local_bytes = sum(x.to_local().numel() * x.to_local().element_size() for x in tree_leaves(state))
+    step = jit_train_step(make_train_step(cfg, run, lm, rules), mesh, sspecs, bspecs)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics, walls, per_step, coll = [], [], [], None
+    for i in range(MESH_FOUR_STEPS):
+        secs = [0.0]
+        undo = clock_redistributions(secs) if i == 0 else None
+        before = launch_counts()["bucket_count_rank"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            state, m = step(state, batch)
+        finally:
+            if undo:
+                undo()
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(launch_counts()["bucket_count_rank"] - before)
+        if undo:
+            coll = secs[0] * 1e3
+    return {"metrics": metrics, "walls": walls, "per_step": per_step, "coll_ms": coll, "local_bytes": local_bytes,
+            "peak": torch.cuda.max_memory_allocated(), "launches": dict(launch_counts())}
+
+
+def mesh_training() -> dict:
+    """Phase 15: the model layer over a mesh: (a) world size 1 over NCCL,
+    (b) 4 ranks sharing the card over gloo.  Returns the launches of both,
+    summed over the ranks."""
+    t0 = time.perf_counter()
+    card = smi()
+    total = collections.Counter()
+    full = registry.get_config(MESH_ARCH)
+    print(f"phase 15 (model layer over a mesh, {card}): {MESH_ARCH} at full width with its production "
+          f"MoE dispatch {full.moe.dispatch!r}; reduced: (a) depth {full.num_layers} -> {TRAIN_LAYERS} layers, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} (phase 11's cut), {MESH_ONE_STEPS} steps; (b) depth "
+          f"{full.num_layers} -> {MESH_FOUR_LAYERS} layers, batch {MESH_FOUR_BATCH} x {MESH_FOUR_SEQ}, "
+          f"{MESH_FOUR_STEPS} steps; widths as published")
+    env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # the rank's deterministic first steps
+    try:
+        (one,) = rt_ranks.run_ranks(mesh_world_one, (1, 1, 1), MESH_NAMES, backend="nccl", device="cuda")
+    finally:
+        if env_before is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
+    ms, plain = one["metrics"], one["plain"]
+    losses = [m["loss"] for m in ms]
+    want_k1 = 2 * TRAIN_LAYERS
+    print(f"  (a) world size 1 over nccl, mesh (1, 1, 1), experts stored {one['wi']}: losses "
+          f"{[round(x, 4) for x in losses]}, grad_norm {[round(m['grad_norm'], 4) for m in ms]}; K1 launches a "
+          f"step {one['per_step']} (the unsharded step: {one['plain_k1']}); step ms (synchronised) "
+          f"{[round(w, 1) for w in one['walls']]} (steps 2-3 without deterministic algorithms; beside phase 11's "
+          f"step above), max allocated {one['peak'] / 2**30:.2f} GiB")
+    print(f"  (a) step 1 against the unsharded 'sorted' step on the same state and batch: loss {ms[0]['loss']!r} vs "
+          f"{plain['loss']!r}, grad_norm {ms[0]['grad_norm']!r} vs {plain['grad_norm']!r}; bits equal "
+          f"{one['first_bits'] == tuple(plain['bits'])}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 15 (a): a loss is not finite: {losses}")
+    if one["per_step"] != [want_k1] * MESH_ONE_STEPS:
+        fail(f"phase 15 (a): K1 launched {one['per_step']} times a step, not {want_k1}")
+    if one["first_bits"] != tuple(plain["bits"]):
+        fail("phase 15 (a): step 1's loss or grad_norm differs in bits from the unsharded step's")
+    total.update(one["launches"])
+    cfg2, run2, batch2 = mesh_four_model()
+    before = launch_counts()
+    ref = unsharded_steps(cfg2, run2, [batch2] * MESH_FOUR_STEPS)
+    total.update({k: v - before[k] for k, v in launch_counts().items()})
+    ranks_out = rt_ranks.run_ranks(mesh_four_ranks, MESH_FOUR, MESH_NAMES, backend="gloo", device="cuda")
+    first = ranks_out[0]["metrics"]
+    n = cfg2.param_count()
+    gap = mesh_four_gaps(first, ref)
+    walls = [max(r["walls"][i] for r in ranks_out) for i in range(MESH_FOUR_STEPS)]
+    coll = [r["coll_ms"] for r in ranks_out]
+    share = ("not measured (this torch has no redistribute_local_tensor)" if coll[0] is None else
+             round(max(coll) / walls[0], 3))
+    print(f"  (b) 4 ranks over gloo on {MESH_FOUR}, {n:,} counted weights, {sum(r['local_bytes'] for r in ranks_out) / 1e9:.1f} GB "
+          f"of state over the ranks, 2 steps on one batch: losses {[m['loss'] for m in first]!r}, grad_norm "
+          f"{[m['grad_norm'] for m in first]!r}; the unsharded steps on the card: losses "
+          f"{[m['loss'] for m in ref]!r}, grad_norm {[m['grad_norm'] for m in ref]!r}; relative gaps: step 1's "
+          f"loss {gap['loss']:.3e}, grad_norm {gap['grad_norm']:.3e}, the loss step 1's update took off "
+          f"{gap['drop']:.3e} (limits {MESH_FOUR_GAP}); step ms (slowest rank): step 1 with DTensor's "
+          f"redistributions clocked (synchronised) {walls[0]:.1f}, {share} of it in them; step 2 unclocked "
+          f"{walls[1]:.1f}; K1 launches a step by rank {[r['per_step'] for r in ranks_out]}; max allocated by "
+          f"rank {[round(r['peak'] / 2**30, 2) for r in ranks_out]} GiB")
+    if not all(math.isfinite(m["loss"]) for r in ranks_out for m in r["metrics"]):
+        fail("phase 15 (b): a loss is not finite")
+    if any(r["metrics"] != first for r in ranks_out):
+        fail("phase 15 (b): the ranks report different metrics")
+    if any(r["per_step"] != [2 * MESH_FOUR_LAYERS] * MESH_FOUR_STEPS for r in ranks_out):
+        fail(f"phase 15 (b): K1 launches a step by rank {[r['per_step'] for r in ranks_out]}, "
+             f"not {2 * MESH_FOUR_LAYERS}")
+    if not all(gap[k] <= MESH_FOUR_GAP[k] for k in MESH_FOUR_GAP):
+        fail(f"phase 15 (b): the gaps {gap} to the unsharded steps pass the limits {MESH_FOUR_GAP}")
+    for r in ranks_out:
+        total.update(r["launches"])
+    print(f"phase 15 (model layer over a mesh): {time.perf_counter() - t0:.1f} s; launches {dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     t_script = time.perf_counter()
     preflight()
@@ -2669,6 +2930,10 @@ def main() -> None:
     dry_run_against_the_card(train_measured, zamba_parts)
     dist_counts = {name: 0 for name in KERNELS}
     dist_counts.update(distributed_path())
+    mesh_counts = {name: 0 for name in KERNELS}
+    mesh_counts.update(mesh_training())
+    if mesh_counts["bucket_count_rank"] == 0:
+        fail("bucket_count_rank never launched on the mesh training path")
 
     launches = {
         **sort_counts,
@@ -2677,14 +2942,14 @@ def main() -> None:
     }
     for name in launches:
         launches[name] += (serve_counts[name] + verify_counts[name] + perf_counts[name] + model_counts[name]
-                           + family_counts[name] + train_counts[name] + dist_counts[name])
+                           + family_counts[name] + train_counts[name] + dist_counts[name] + mesh_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
             c[name]
             for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, perf_counts,
-                      model_counts, family_counts, train_counts, dist_counts)
+                      model_counts, family_counts, train_counts, dist_counts, mesh_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

@@ -12,6 +12,13 @@ bfloat16 leaf is stored as its 16 bits (``uint16``; numpy has no
 bfloat16 without ``ml_dtypes``) and its dtype recorded in the manifest;
 every other torch dtype maps to its numpy twin, so every leaf
 round-trips bit for bit.
+
+A DTensor leaf (a state sharded over ranks) is written as its logical
+array, as the reference writes its global arrays: every rank of its mesh
+calls ``save`` and gathers it (``full_tensor()``), rank 0 alone writes,
+synchronously, and the ranks meet at a barrier before ``save`` returns.
+``restore`` gives plain tensors, which ``repro_torch.runtime.reshard_state``
+lays onto any mesh whose axes divide them.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import is_dtensor
 
 
 def _flatten(tree, prefix=""):
@@ -57,7 +66,10 @@ def _unflatten(flat: dict, skeleton):
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
-    """A host copy of ``x`` that later in-place updates cannot reach."""
+    """A host copy of ``x`` that later in-place updates cannot reach; a
+    DTensor's whole logical array (a collective over its mesh)."""
+    if is_dtensor(x):
+        x = x.full_tensor()
     x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16)
@@ -83,28 +95,34 @@ class Checkpointer:
         flat = _flatten(tree)
         dtypes = {path: "bfloat16" for path, x in flat.items() if x.dtype == torch.bfloat16}
         host = {path: _to_host(x) for path, x in flat.items()}
+        if any(is_dtensor(x) for x in flat.values()):
+            import torch.distributed as dist
 
-        def _write():
-            tmp = os.path.join(self.dir, f"step_{step}.tmp")
-            final = os.path.join(self.dir, f"step_{step}")
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-            manifest = {"step": step, "leaves": {}, "dtypes": dtypes, "extra": extra or {}}
-            for path, arr in host.items():
-                fname = path.replace("/", "__") + ".npy"
-                np.save(os.path.join(tmp, fname), arr)
-                manifest["leaves"][path] = fname
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f)
-            shutil.rmtree(final, ignore_errors=True)
-            os.rename(tmp, final)
-            self._gc()
-
+            if dist.get_rank() == 0:
+                self._write(step, host, dtypes, extra)
+            dist.barrier()
+            return
         if async_save:
-            self._thread = threading.Thread(target=_write, daemon=True)
+            self._thread = threading.Thread(target=self._write, args=(step, host, dtypes, extra), daemon=True)
             self._thread.start()
         else:
-            _write()
+            self._write(step, host, dtypes, extra)
+
+    def _write(self, step: int, host: dict, dtypes: dict, extra):
+        tmp = os.path.join(self.dir, f"step_{step}.tmp")
+        final = os.path.join(self.dir, f"step_{step}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        manifest = {"step": step, "leaves": {}, "dtypes": dtypes, "extra": extra or {}}
+        for path, arr in host.items():
+            fname = path.replace("/", "__") + ".npy"
+            np.save(os.path.join(tmp, fname), arr)
+            manifest["leaves"][path] = fname
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        self._gc()
 
     def wait(self):
         if self._thread is not None:

@@ -11,10 +11,11 @@ The port's copy of ``repro.launch.sharding``.  Everything here operates on
   cases: SP (sequence sharding) for head counts indivisible by TP, and
   ``kv_seq`` sharding for the batch=1 ``long_500k`` decode cache.
 
-The reference's ``named`` (``NamedSharding``s over a device mesh) has no
-counterpart without a process group.  In its place ``local_shape`` and
-``shard_factor`` give one device's share of a tensor under a spec, which
-the dry-run's byte counts use.
+The mesh is a ``MeshSpec`` (shapes only, the dry-run) or a
+``DeviceMesh`` over ranks (a real run).  ``named`` (the reference's
+``NamedSharding``s) gives a spec tree's DTensor placements on a
+``DeviceMesh``; ``local_shape`` and ``shard_factor`` give one device's
+share of a tensor under a spec, which the dry-run's byte counts use.
 """
 
 from __future__ import annotations
@@ -23,14 +24,23 @@ import math
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import MeshSpec
-from repro_torch.models.common import AxisRules, Spec, spec_map
+from repro_torch.models.common import AxisRules, Spec, placements, spec_map
 
 
-def mesh_axis_sizes(mesh: MeshSpec) -> dict[str, int]:
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    """Axis name → size of a ``MeshSpec`` or a ``DeviceMesh``."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     return dict(zip(mesh.axis_names, mesh.shape))
 
 
-def rules_for(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec) -> AxisRules:
+def named(spec_tree, mesh):
+    """The DTensor placements of every ``Spec`` of a tree on the
+    ``DeviceMesh`` ``mesh``: the reference's ``NamedSharding`` tree."""
+    return spec_map(lambda s: placements(s, mesh), spec_tree)
+
+
+def rules_for(cfg: ModelConfig, shape: ShapeConfig, mesh) -> AxisRules:
     sizes = mesh_axis_sizes(mesh)
     batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
     tp = sizes.get("model", 1)
@@ -71,7 +81,7 @@ def _dims(arr) -> tuple[int, ...]:
     return tuple(arr.shape) if hasattr(arr, "shape") else tuple(arr)
 
 
-def sanitize_specs(spec_tree, shaped_tree, mesh: MeshSpec):
+def sanitize_specs(spec_tree, shaped_tree, mesh):
     """Drop spec axes that don't evenly divide the array dims.  The leaves
     of ``shaped_tree`` are tensors or shape tuples."""
     sizes = mesh_axis_sizes(mesh)
@@ -146,3 +156,27 @@ def cache_specs(cfg: ModelConfig, rules: AxisRules, cache_shapes) -> dict:
         # ring cache: (L, B, ring, KV, hd) ×2 + (L, ring) positions
         return {"layers": (kv5(), kv5(), Spec(None, None))}
     return {"layers": (kv5(), kv5())}
+
+
+# --------------------------------------------------------------- train specs
+def train_specs(cfg: ModelConfig, shape: ShapeConfig, run, mesh, params):
+    """(rules, state specs, batch specs) of a training run on ``mesh``, as
+    the reference's launcher builds them for ``jit_train_step``: the
+    sanitized parameter specs, AdamW's moments (and the float32 master)
+    like their parameters, the int8 error feedback likewise, the step and
+    the count replicated.  The leaves of ``params`` are tensors or shape
+    tuples."""
+    from repro_torch.configs.registry import get_model_api
+    from repro_torch.optim.adamw import opt_state_specs
+
+    rules = rules_for(cfg, shape, mesh)
+    tp = mesh_axis_sizes(mesh).get("model", 1)
+    pspecs = sanitize_specs(get_model_api(cfg).param_specs(cfg, rules, tp), params, mesh)
+    opt = opt_state_specs(pspecs)
+    if run.master_weights:
+        opt["master"] = pspecs
+    sspecs = {"params": pspecs, "opt": opt, "step": Spec()}
+    if run.grad_compression == "int8":
+        sspecs["error_fb"] = pspecs
+    rows = {"tokens": (shape.global_batch, shape.seq_len), "labels": (shape.global_batch, shape.seq_len)}
+    return rules, sspecs, sanitize_specs(batch_specs(cfg, shape, rules), rows, mesh)

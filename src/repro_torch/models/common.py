@@ -1,9 +1,9 @@
 """Shared model utilities: init, sharding rules, the layer loop.
 
-The port's copy of ``repro.models.common``.  There is no mesh, so
-``shard`` is the identity.  ``AxisRules.spec`` gives the reference's
-``PartitionSpec`` as a ``Spec`` (a tuple of mesh-axis entries), which the
-dry-run (``repro_torch.launch``) sanitizes and divides shapes by.  Layer
+The port's copy of ``repro.models.common``.  ``AxisRules.spec`` gives
+the reference's ``PartitionSpec`` as a ``Spec`` (a tuple of mesh-axis
+entries), which the dry-run (``repro_torch.launch``) sanitizes and
+divides shapes by.  Layer
 parameters keep the reference's stacked leading-L layout, and are built
 stacked (``dense_init(..., lead=(L,))``) so that no per-layer copies are
 ever held beside the stack; the reference's ``maybe_scan`` is a Python
@@ -12,6 +12,17 @@ for one entry of a stacked cache).
 
 Inside ``shapes_only()`` every ``dense_init`` and ``const_init`` makes a
 meta tensor and draws nothing: the port's ``jax.eval_shape`` of an init.
+
+The mesh (the reference's ``compat.set_mesh`` and GSPMD, on DTensor):
+``set_mesh`` makes a ``DeviceMesh`` ambient (one process a device, see
+``repro_torch.runtime.ranks``).  Under it, with ``rules.enabled``, the
+model's activations and parameters are DTensors: ``shard`` redistributes
+one to ``rules.spec(*axes)`` (``with_sharding_constraint``), and
+``region`` runs a body on each rank's local shards between stated
+placements (``shard_map``, through ``local_map``).  Each op's placements
+are stated by its caller; nothing is left to DTensor's own propagation,
+whose search took more than 25 s for one einsum of a weight sharded on
+two dims of a (2, 2, 2) mesh (torch 2.13, CPU).
 """
 
 from __future__ import annotations
@@ -106,9 +117,301 @@ class AxisRules:
 NO_SHARD = AxisRules(batch=None, fsdp=None, tensor=None, enabled=False)
 
 
+# ----------------------------------------------------------------- the mesh
+_MESH = [None]  # process-wide: autograd's device threads recompute remat bodies
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) the ambient mesh within the block:
+    the reference's ``compat.set_mesh``."""
+    before = _MESH[0]
+    _MESH[0] = mesh
+    try:
+        yield mesh
+    finally:
+        _MESH[0] = before
+
+
+def get_ambient_mesh():
+    """The mesh installed by :func:`set_mesh`, or ``None`` outside one."""
+    return _MESH[0]
+
+
+def mesh_for(rules: AxisRules):
+    """The ambient mesh when ``rules`` shard under it, else ``None``."""
+    return _MESH[0] if rules.enabled else None
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage), or the tensor itself."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def placements(spec, mesh) -> list:
+    """A ``Spec`` as DTensor placements on ``mesh``: ``Shard(dim)`` on every
+    mesh dim that the spec's entry for ``dim`` names, ``Replicate()`` on the
+    others.  A dim split over several mesh dims takes them major to minor,
+    as ``PartitionSpec`` does, so their order must be the mesh's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate()] * mesh.ndim
+    names = mesh.mesh_dim_names
+    for dim, entry in enumerate(spec or ()):
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in mesh order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def fit_spec(spec, shape, mesh) -> Spec:
+    """``spec`` with the mesh axes that do not divide their dim dropped
+    (the reference's ``sanitize_specs`` for one tensor)."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for d, e in zip(shape, entries):
+        axes = (e,) if isinstance(e, str) else tuple(e or ())
+        out.append(e if axes and d % math.prod(sizes[a] for a in axes) == 0 else None)
+    return Spec(*out)
+
+
 def shard(x: torch.Tensor, rules: AxisRules, *axes) -> torch.Tensor:
-    """The reference's sharding constraint; the identity without a mesh."""
-    return x
+    """The reference's sharding constraint: under an ambient mesh with
+    ``rules.enabled``, ``x`` (a DTensor) redistributed to
+    ``rules.spec(*axes)``; the identity otherwise.  A plain tensor under
+    such a mesh raises: it would run unsharded in silence."""
+    mesh = mesh_for(rules)
+    if mesh is None:
+        return x
+    if not is_dtensor(x):
+        raise TypeError(
+            f"shard{axes}: a plain tensor {tuple(x.shape)} under a mesh; distribute it first "
+            "(jit_train_step distributes the state and the batch by their specs)"
+        )
+    return x.redistribute(mesh, placements(fit_spec(rules.spec(*axes), x.shape, mesh), mesh))
+
+
+def axes_of(x, mesh) -> Spec:
+    """The ``Spec`` of a DTensor's Shard placements (mesh axis names a dim)."""
+    from torch.distributed.tensor import Shard
+
+    entries = [[] for _ in range(x.dim())]
+    for name, p in zip(mesh.mesh_dim_names, x.placements):
+        if isinstance(p, Shard):
+            entries[p.dim].append(name)
+    return Spec(*entries)
+
+
+def tp_spec(w, rules: AxisRules, mesh) -> Spec:
+    """A weight's ``Spec`` with only its tensor-axis entry kept: the
+    placement a region computes it in, gathered over FSDP and replicated
+    over the batch axes (the reference's weights inside a GSPMD matmul)."""
+    return Spec(*(rules.tensor if e is not None and rules.tensor in ((e,) if isinstance(e, str) else e) else None
+                  for e in axes_of(w, mesh)))
+
+
+def on_tensor_axis(w, rules: AxisRules, mesh) -> bool:
+    """Whether the weight ``w`` is split over the tensor axis."""
+    return any(e is not None for e in tp_spec(w, rules, mesh))
+
+
+def region(fn, args, in_specs, out_specs, *, partial=(), mesh=None):
+    """``fn(*local args)`` on every rank's local shards: the reference's
+    ``shard_map`` through ``local_map``.
+
+    ``in_specs`` gives a ``Spec`` for each DTensor argument (the argument
+    is redistributed to it first) and ``None`` for any other, which passes
+    as it is.  ``out_specs`` gives each output's ``Spec``; an output is
+    moreover a partial sum over the mesh axes ``partial`` (a tuple of axis
+    names for every output, or a list of such tuples, one an output).  On a mesh dim
+    where every output is replicated, a replicated argument's gradient is
+    replicated; where the outputs are split or partial, it is a partial
+    sum (each rank computed its share of it), as the transpose of
+    ``shard_map`` sums the cotangents of an unmentioned axis.  A region
+    whose outputs disagree on a dim would need both, and raises.  Every
+    gradient leaves the region reduced into its argument's layout, in the
+    argument's dtype (``_ReduceGrad``)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = mesh or _MESH[0]
+    names = mesh.mesh_dim_names
+    outs = [placements(s, mesh) for s in out_specs]
+    partial = partial if isinstance(partial, list) else [partial] * len(outs)
+    for o, axes in zip(outs, partial):
+        for i, name in enumerate(names):
+            if name in axes:
+                o[i] = Partial()
+    split = []
+    for i in range(mesh.ndim):
+        kinds = {o[i].is_replicate() for o in outs}
+        if len(kinds) > 1:
+            raise ValueError(f"region outputs disagree on mesh dim {names[i]!r}: some replicated, some not")
+        split.append(not kinds.pop())
+    ins, grads = [], []
+    for spec in in_specs:
+        if spec is None:
+            ins.append(None)
+            grads.append(None)
+            continue
+        pl = placements(spec, mesh)
+        ins.append(tuple(pl))
+        grads.append(tuple(Partial() if p.is_replicate() and split[i] else p for i, p in enumerate(pl)))
+    args = [_enter(a, pl, mesh) if pl is not None and is_dtensor(a) else a for a, pl in zip(args, ins)]
+    fn_local = local_map(
+        fn,
+        out_placements=tuple(outs) if len(outs) > 1 else outs[0],  # a list is one output's placements
+        in_placements=tuple(ins),
+        in_grad_placements=tuple(grads),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )
+    return fn_local(*args)
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """The identity on a DTensor whose backward reduces a partial-sum
+    gradient into ``placements`` (the argument's layout before the region
+    gathered it) right there: in float32 for a narrow dtype, and before a
+    cast's backward rounds the partial sums one by one (a bf16 parameter
+    cast to float32 for a region: its gradient summed over the ranks in
+    float32 and rounded once, as the reference's)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g, None
+        if g.dtype.itemsize < 4:  # partial sums of a narrow dtype are added in float32
+            return g.to(torch.float32).redistribute(ctx.mesh, ctx.placements).to(g.dtype), None
+        return g.redistribute(ctx.mesh, ctx.placements), None
+
+
+def relaid(x, pl, mesh):
+    """The DTensor ``x`` redistributed to the placements ``pl``, or ``x``
+    itself where it lies so already."""
+    return x if tuple(x.placements) == tuple(pl) else x.redistribute(mesh, pl)
+
+
+def _enter(x, pl, mesh):
+    """A region's argument laid out as ``pl``; its gradient comes back
+    reduced into ``x``'s own layout (``_ReduceGrad``)."""
+    before = tuple(x.placements)
+    x = relaid(x, pl, mesh)
+    return _ReduceGrad.apply(x, before) if x.requires_grad else x
+
+
+def tp_region(body, x, weights, rules: AxisRules, mesh):
+    """``body(x, *weights)`` for a column- then row-parallel block (the
+    MLP, attention, the shared experts): ``x`` as it lies, each weight
+    gathered over FSDP with its tensor-axis split kept (MLA's latent
+    projections have none).  The output is laid out as ``x`` and is a
+    partial sum over the tensor axis when any weight is split there.
+
+    Callers cast the weights to the dtype the body computes in before the
+    region, as the reference casts before its matmul: the gradients' sums
+    over the ranks are then taken in that dtype and rounded to the
+    parameter's once (a bf16 parameter in a float32 model)."""
+    split = any(on_tensor_axis(w, rules, mesh) for w in weights)
+    spec = axes_of(x, mesh)
+    return region(body, (x, *weights), (spec, *(tp_spec(w, rules, mesh) for w in weights)), (spec,),
+                  partial=(rules.tensor,) if split else (), mesh=mesh)
+
+
+def replicated(x, mesh=None):
+    """``x`` (a DTensor) replicated on every mesh dim: the explicit gather
+    before an op that needs the whole tensor (a data-dependent index, a
+    reduction over a sharded dim)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = mesh or _MESH[0]
+    return x.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+def distribute(x: torch.Tensor, spec, mesh):
+    """A plain tensor that every rank holds alike, as a DTensor laid out by
+    ``spec`` on ``mesh``: each rank keeps its own shard and nothing is
+    sent.  A shard is a copy, so ``x`` can be freed; a replicated leaf is
+    ``x`` itself (the step takes its state over, as the reference's
+    donated buffers).  A dim its mesh axes do not divide evenly goes
+    through ``distribute_tensor`` (rank 0's data is sent)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.runtime.ranks import mesh_device
+
+    pl = placements(spec, mesh)
+    x = x.to(mesh_device(mesh))
+    part = x
+    for i, p in enumerate(pl):
+        n = mesh.mesh.shape[i]
+        if p.is_shard() and n > 1:
+            if part.shape[p.dim] % n:
+                return distribute_tensor(x, mesh, pl)
+            part = part.chunk(n, dim=p.dim)[mesh.get_local_rank(i)]
+    part = part.contiguous() if part is x else part.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(part, mesh, pl, run_check=False)
+
+
+def lay_out(tree, specs, mesh):
+    """``tree`` laid out on ``mesh`` by the ``Spec`` tree ``specs`` (a
+    ``None`` spec replicates): a plain leaf, the same on every rank, is cut
+    to this rank's shard (``distribute``); a DTensor is redistributed where
+    its placements differ."""
+
+    def put(x, spec):
+        return relaid(x, placements(spec, mesh), mesh) if is_dtensor(x) else distribute(x, spec, mesh)
+
+    if specs is None or isinstance(specs, Spec):
+        return put(tree, specs)
+    if isinstance(specs, dict):
+        return {k: lay_out(tree[k], v, mesh) for k, v in specs.items()}
+    return type(specs)(lay_out(t, s, mesh) for t, s in zip(tree, specs))
+
+
+def mesh_zeros(mesh, dtype=torch.float32):
+    """A replicated 0-d zero on ``mesh`` (an accumulator that meets DTensors)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.runtime.ranks import mesh_device
+
+    z = torch.zeros((), dtype=dtype, device=mesh_device(mesh))
+    return DTensor.from_local(z, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def batch_shards(rules: AxisRules, mesh) -> int:
+    """Into how many pieces the batch axes cut the batch."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return math.prod(sizes[a] for a in (rules.batch or ()))
+
+
+def local_rules(rules: AxisRules) -> AxisRules:
+    """The rules a region's body runs under: its placements already hold
+    the reference's constraints, so ``shard`` is the identity there."""
+    return dataclasses.replace(rules, enabled=False)
+
+
+def unported_on_mesh(what: str, rules: AxisRules) -> None:
+    """Raise for a path the port does not run over a mesh yet, rather than
+    run it unsharded in silence."""
+    if mesh_for(rules) is not None:
+        raise NotImplementedError(
+            f"{what} over a mesh is not ported yet (ROADMAP.md, Queue 1 item 7, "
+            "'the other families and serving over a mesh')"
+        )
 
 
 def gather_seq(x: torch.Tensor, rules: AxisRules) -> torch.Tensor:

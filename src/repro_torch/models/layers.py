@@ -8,6 +8,14 @@ axes.  Weights are kept in
 ``cfg.param_dtype`` and cast to ``cfg.dtype`` where they are used, as in
 the reference; ``embed_tokens`` gathers the rows first and casts them
 after, which gives the same values without casting the whole table.
+
+Under a mesh (``common.set_mesh``) the embedding, the MLP and the unembed
+each run as one ``common.region`` on DTensors: the embedding gathers its
+table whole (the index is data-dependent) and each rank looks up its own
+tokens; the MLP's weights are gathered over FSDP and keep their
+tensor-parallel split, so its output is a partial sum over the tensor
+axis, reduced by ``shard`` before the output bias; the unembed leaves the
+logits split over the vocabulary.
 """
 
 from __future__ import annotations
@@ -15,7 +23,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import AxisRules, Spec, const_init, dense_init, shard, spec_map
+from repro_torch.models.common import (
+    AxisRules,
+    Spec,
+    axes_of,
+    const_init,
+    is_dtensor,
+    dense_init,
+    local_rules,
+    mesh_for,
+    on_tensor_axis,
+    region,
+    shard,
+    spec_map,
+    tp_region,
+    tp_spec,
+)
 
 
 # ------------------------------------------------------------------- norms
@@ -34,6 +57,19 @@ def norm_specs(cfg) -> dict:
 
 
 def apply_norm(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """RMSNorm or LayerNorm over the last dim, in float32.  On a DTensor
+    (under a mesh), one region on each rank's rows, the scale and bias
+    taken in float32 before it (their gradients are summed over the ranks
+    in float32, as the reference's)."""
+    if is_dtensor(x):
+        keys = list(p)
+        spec = axes_of(x, x.device_mesh)
+        return region(lambda x, *w: _norm(dict(zip(keys, w)), x, cfg), (x, *(p[k].to(torch.float32) for k in keys)),
+                      (spec, *(Spec(),) * len(keys)), (spec,), mesh=x.device_mesh)
+    return _norm(p, x, cfg)
+
+
+def _norm(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     xf = x.to(torch.float32)
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -69,7 +105,8 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, cfg, *, lead: tuple[int, .
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
+def _mlp_core(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
+    """The MLP up to its output bias."""
     dt = cfg.dtype
     if cfg.act == "silu":
         h = torch.einsum("bsd,df->bsf", x, p["wi"].to(dt))
@@ -79,9 +116,20 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
         h = torch.einsum("bsd,df->bsf", x, p["wi"].to(dt)) + p["bi"].to(dt)
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     h = shard(h, rules, "batch", "seq", "tensor")
-    out = torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt))
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
+    mesh = mesh_for(rules)
+    if mesh is None:
+        out = _mlp_core(p, x, cfg, rules)
+    else:
+        keys = [k for k in ("wi", "wg", "wo", "bi") if k in p]
+        out = tp_region(lambda x, *w: _mlp_core(dict(zip(keys, w)), x, cfg, local_rules(rules)),
+                        x, [p[k].to(cfg.dtype) for k in keys], rules, mesh)
+        out = shard(out, rules, "batch", "seq", None)
     if cfg.act != "silu":
-        out = out + p["bo"].to(dt)
+        out = out + p["bo"].to(cfg.dtype)
     return out
 
 
@@ -100,15 +148,36 @@ def init_embedding(gen: torch.Generator, cfg) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
-    x = p["embed"][tokens].to(cfg.dtype)
+    mesh = mesh_for(rules)
+    if mesh is None:
+        x = p["embed"][tokens].to(cfg.dtype)
+    else:
+        # a data-dependent row gather: the table is gathered whole, in the
+        # wider of its dtype and the compute dtype (the same rows), so its
+        # gradient is summed over the ranks before it is rounded
+        table = p["embed"].to(torch.promote_types(p["embed"].dtype, cfg.dtype))
+        x = region(lambda table, tok: table[tok].to(cfg.dtype), (table, tokens),
+                   (Spec(), rules.spec("batch", None)), (rules.spec("batch", None, None),), mesh=mesh)
     return shard(x, rules, "batch", "seq", None)
+
+
+def _unembed_core(w, x, cfg, tied: bool) -> torch.Tensor:
+    return torch.einsum("bsd,dv->bsv", x, (w.T if tied else w).to(cfg.dtype))
 
 
 def unembed(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
     w = p.get("unembed")
-    if w is None:
-        w = p["embed"].T
-    logits = torch.einsum("bsd,dv->bsv", x, w.to(cfg.dtype))
+    tied = w is None
+    if tied:
+        w = p["embed"]
+    mesh = mesh_for(rules)
+    if mesh is None:
+        logits = _unembed_core(w, x, cfg, tied)
+    else:
+        vocab = rules.tensor if on_tensor_axis(w, rules, mesh) else None
+        logits = region(lambda w, x: _unembed_core(w, x, cfg, tied), (w.to(cfg.dtype), x),
+                        (tp_spec(w, rules, mesh), axes_of(x, mesh)),
+                        (Spec(*axes_of(x, mesh)[:2], vocab),), mesh=mesh)
     return shard(logits, rules, "batch", "seq", "tensor")
 
 

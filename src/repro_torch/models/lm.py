@@ -46,10 +46,15 @@ from repro_torch.models.common import (
     dense_init,
     gather_seq,
     layer,
+    local_rules,
+    mesh_for,
+    mesh_zeros,
     prepend_none_spec,
     put,
     shard,
+    tp_region,
     tree_map,
+    unported_on_mesh,
     unstack,
 )
 from repro_torch.models.rope import apply_mrope, apply_rope
@@ -113,7 +118,30 @@ def apply_attn_block(
 ):
     """Attention sublayer.  Train/prefill when ``cache_kv`` is None (returns
     the full-sequence (k, v) for cache building); else one decode step that
-    writes this step's keys into the cache tensors in place and returns them."""
+    writes this step's keys into the cache tensors in place and returns them.
+
+    Under a mesh (training only), one ``tp_region``: each rank attends
+    over its batch rows and its heads, and the output projection's
+    partial sums over the tensor axis are reduced by ``shard``."""
+    mesh = mesh_for(rules)
+    if mesh is not None:
+        keys = list(p)
+
+        def body(x, *w):
+            return _attn_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions=positions, window=window,
+                              theta=theta, positions_thw=positions_thw)[0]
+
+        # the norms' scales are used in float32, every other weight in cfg.dtype
+        ws = [p[k].to(torch.float32 if k in ("q_norm", "k_norm") else cfg.dtype) for k in keys]
+        out = tp_region(body, x, ws, rules, mesh)
+        return shard(out, rules, "batch", "seq", None), None
+    out, new_kv = _attn_core(p, x, cfg, rules, positions=positions, window=window, theta=theta,
+                             positions_thw=positions_thw, cache_kv=cache_kv, pos=pos)
+    return shard(out, rules, "batch", "seq", None), new_kv
+
+
+def _attn_core(p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None):
+    """``apply_attn_block`` up to its output's sharding constraint."""
     q, k, v = _qkv(p, x, cfg, positions=positions, theta=theta, positions_thw=positions_thw)
     if cache_kv is None:
         out = attention(
@@ -142,8 +170,7 @@ def apply_attn_block(
             chunk=cfg.attn_chunk, matmul_bf16=cfg.attn_matmul_bf16,
         )
         new_kv = (ck, cv)
-    out = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cfg.dtype))
-    return shard(out, rules, "batch", "seq", None), new_kv
+    return torch.einsum("bshe,hed->bsd", out, p["wo"].to(cfg.dtype)), new_kv
 
 
 # ================================================================ blocks
@@ -302,7 +329,8 @@ def _layers(params, cfg):
 def _embed_in(params, batch, cfg, rules):
     x = L.embed_tokens(params["embedding"], batch["tokens"], cfg, rules)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype, device=x.device)
+        # the reference's scale rounded to the compute dtype first
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
     ve = batch.get("vision_embeds")
     if ve is not None and cfg.vision_tokens:
         # the reference's dynamic_update_slice at position 0
@@ -322,6 +350,18 @@ def _store(dst: dict, src: dict) -> None:
 
 
 # ==================================================================== forward
+MESH_FAMILIES = ("dense", "moe")  # the families the port trains over a mesh
+
+
+def check_mesh(cfg, rules: AxisRules) -> None:
+    """Raise for what the port does not run over a mesh yet: the other
+    families, vision inputs, and sequence parallelism."""
+    if cfg.family not in MESH_FAMILIES or cfg.vision_tokens:
+        unported_on_mesh(f"the {cfg.family} family", rules)
+    if rules.seq:
+        unported_on_mesh("sequence parallelism (rules.seq)", rules)
+
+
 def remat(fn, cfg, *args):
     """``fn(*args)``, its activations recomputed in the backward when
     ``cfg.remat`` and autograd is recording: the reference's
@@ -335,13 +375,20 @@ def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
     """Training forward: returns (logits (B,S,V), aux_loss).
 
     Each layer's body runs under ``remat``; the hybrid family's shared
-    block stays outside it, as in the reference."""
+    block stays outside it, as in the reference.  Under a mesh the dense
+    and moe families run on DTensors (``common.set_mesh``); the others
+    raise."""
     check_family(cfg)
+    check_mesh(cfg, rules)
     tokens = batch["tokens"]
     x = x0 = _embed_in(params, batch, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     positions_thw = batch.get("positions_thw")
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    mesh = mesh_for(rules)
+    if mesh is None:
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    else:
+        aux = mesh_zeros(mesh)
     for i, (blk, w, th) in enumerate(_layers(params, cfg)):
 
         def body(x, aux, blk=blk, w=w, th=th):
@@ -420,6 +467,7 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
     ``prefill_inscan_cache``.
     """
     check_family(cfg)
+    unported_on_mesh("prefill", rules)
     tokens = batch["tokens"]
     x = x0 = _embed_in(params, batch, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -456,6 +504,7 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
 def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict, pos: int):
     """One token for every sequence.  tokens: (B, 1); pos: the position."""
     check_family(cfg)
+    unported_on_mesh("decode", rules)
     x = x0 = _embed_in(params, {"tokens": tokens}, cfg, rules)
     positions = torch.tensor([pos], device=tokens.device)
     positions_thw = None

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.attention import attention, attention_with_lse
-from repro_torch.models.common import AxisRules, Spec, dense_init, gather_seq, put, shard
+from repro_torch.models.common import AxisRules, Spec, dense_init, gather_seq, local_rules, mesh_for, put, shard, tp_region
 from repro_torch.models.rope import apply_rope
 
 
@@ -74,15 +74,30 @@ def _scale(cfg) -> float:
 
 
 def mla_attention(p, x, cfg, rules: AxisRules, *, positions, chunk=1024):
-    """Training/prefill forward.  Returns (out, (c, kr)): the latent for caching."""
+    """Training/prefill forward.  Returns (out, (c, kr)): the latent for caching.
+
+    Under a mesh (training only), one ``tp_region``: each rank builds the
+    latent for its batch rows (``wdkv``/``wkr`` are not split over the
+    tensor axis) and attends over its heads; the output projection's
+    partial sums are reduced by ``shard``."""
+    mesh = mesh_for(rules)
+    if mesh is not None:
+        keys = list(p)
+        body = lambda x, *w: _mla_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions, chunk)[0]  # noqa: E731
+        out = tp_region(body, x, [p[k].to(cfg.dtype) for k in keys], rules, mesh)
+        return shard(out, rules, "batch", "seq", None), None
+    out, latent = _mla_core(p, x, cfg, rules, positions, chunk)
+    return shard(out, rules, "batch", "seq", None), latent
+
+
+def _mla_core(p, x, cfg, rules, positions, chunk):
     qn, qr = _project_q(p, x, cfg, positions)
     c, kr = _latent(p, x, cfg, positions)
     k, v = _expand(p, c, kr, cfg)
     q = torch.cat([qn, qr], -1)
     k, v = gather_seq(k, rules), gather_seq(v, rules)
     out = attention(q, k, v, causal=True, chunk=chunk, scale=_scale(cfg), matmul_bf16=cfg.attn_matmul_bf16)
-    out = torch.einsum("bshe,hed->bsd", out, p["wo"].to(cfg.dtype))
-    return shard(out, rules, "batch", "seq", None), (c, kr)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"].to(cfg.dtype)), (c, kr)
 
 
 def mla_decode(p, x, cfg, rules: AxisRules, *, cache, pos: int):

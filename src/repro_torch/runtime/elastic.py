@@ -15,7 +15,7 @@ import math
 
 import torch.distributed as dist
 
-from repro_torch.models.common import Spec
+from repro_torch.models.common import lay_out
 from repro_torch.runtime import ranks
 
 
@@ -36,37 +36,12 @@ def elastic_mesh(target_shape: tuple[int, ...], axis_names: tuple[str, ...], dev
     return ranks.make_mesh(shape, axis_names, device_type, ranks=devices)
 
 
-def _placements(spec, mesh):
-    from torch.distributed.tensor import Replicate, Shard
-
-    placements = [Replicate()] * mesh.ndim
-    names = mesh.mesh_dim_names
-    for dim, entry in enumerate(spec or ()):
-        axes = (entry,) if isinstance(entry, str) else (entry or ())
-        idx = [names.index(a) for a in axes]
-        if idx != sorted(idx):
-            # DTensor shards one dim over several mesh dims major to minor
-            raise ValueError(f"spec entry {entry} is not in mesh order {names}")
-        for i in idx:
-            placements[i] = Shard(dim)
-    return placements
-
-
 def reshard_state(state, spec_tree, mesh):
-    """Distribute every leaf onto ``mesh`` with its ``Spec`` (a ``None``
-    spec replicates): ``Shard(dim)`` on each mesh dim a spec entry names,
+    """Lay every leaf onto ``mesh`` with its ``Spec`` (a ``None`` spec
+    replicates): ``Shard(dim)`` on each mesh dim a spec entry names,
     ``Replicate()`` on the others.  Returns the tree of DTensors; every
-    rank of the mesh calls it with the same state (rank 0's data is sent)."""
-    from torch.distributed.tensor import distribute_tensor
-
-    def put(x, spec):
-        return distribute_tensor(x.to(ranks.mesh_device(mesh)), mesh, _placements(spec, mesh))
-
-    def walk(tree, specs):
-        if specs is None or isinstance(specs, Spec):
-            return put(tree, specs)
-        if isinstance(specs, dict):
-            return {k: walk(tree[k], v) for k, v in specs.items()}
-        return type(specs)(walk(t, s) for t, s in zip(tree, specs))
-
-    return walk(state, spec_tree)
+    rank of the mesh calls it with the same state (a restored checkpoint)
+    and keeps its own shard.  A leaf that is a DTensor already is
+    redistributed.  The same layout as ``jit_train_step``'s
+    (``models.common.lay_out``)."""
+    return lay_out(state, spec_tree, mesh)

@@ -26,7 +26,11 @@ The collective calls below (:func:`all_to_all`, :func:`all_gather`,
 the dist path and ``runtime`` use, in one place so that a caller can count
 or clock them.  Under gloo, the point-to-point messages of CUDA tensors
 (:func:`exchange`) go through host buffers explicitly: gloo carries the
-collectives of CUDA tensors but not their ``send``/``recv``.  The rule is
+collectives of CUDA tensors but not their ``send``/``recv``.  DTensor's
+gathers of CUDA tensors under gloo go through :func:`all_gather` too
+(:func:`_route_gloo_cuda_gathers`): its functional all-gather crashes the
+rank there (SIGSEGV in ``wait_tensor``, H100, torch 2.11), where the
+functional all-reduce, reduce-scatter and all-to-all run.  The rules are
 fixed here, before any run; no failure moves a collective elsewhere.
 """
 
@@ -105,9 +109,14 @@ def run_ranks(
 
 
 def _rank_main(rank, world, backend, device_type, mesh_shape, names, tmp, fn, args):
+    import faulthandler
+
+    faulthandler.enable()  # a rank that crashes in native code prints its Python stack
     torch.set_num_threads(1)
     if device_type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
+        if backend == "gloo":
+            _route_gloo_cuda_gathers()
     dist.init_process_group(
         backend,
         init_method=f"file://{os.path.join(tmp, 'store')}",
@@ -124,6 +133,46 @@ def _rank_main(rank, world, backend, device_type, mesh_shape, names, tmp, fn, ar
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def _route_gloo_cuda_gathers() -> None:
+    """Make DTensor gather a CUDA tensor under gloo with c10d's
+    ``all_gather_into_tensor`` (:func:`all_gather`), which gloo carries,
+    in place of the functional all-gather, which crashes the rank there.
+    Both names the functional module has used are routed; other groups,
+    backends and devices keep the functional call."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for name in ("all_gather_tensor", "all_gather_single"):
+        original = getattr(funcol, name, None)
+        if original is not None:
+            setattr(funcol, name, _gloo_cuda_gather(original))
+
+
+def _gloo_cuda_gather(original):
+    """The functional all-gather ``original`` with DTensor's gathers of a
+    CUDA tensor under gloo (``group`` a (mesh, mesh dim) pair) routed
+    through :func:`gather_along`."""
+
+    def gather(self, gather_dim, group, tag=""):
+        pg = group[0].get_group(group[1]) if isinstance(group, tuple) and len(group) == 2 else None
+        if pg is None or not _routed(self, pg):
+            return original(self, gather_dim, group, tag)
+        return gather_along(self, gather_dim, pg)
+
+    return gather
+
+
+def _routed(x: torch.Tensor, pg) -> bool:
+    return x.is_cuda and dist.get_backend(pg) == "gloo"
+
+
+def gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's ``x``s concatenated along ``dim`` in rank order, through
+    :func:`all_gather` (dim 0) and a concatenation of its blocks."""
+    n = dist.get_world_size(group)
+    out = all_gather(x.new_empty((n * x.shape[0], *x.shape[1:])), x, group)
+    return out if dim == 0 else torch.cat(out.chunk(n, dim=0), dim=dim)
 
 
 # -------------------------------------------------------------------- meshes

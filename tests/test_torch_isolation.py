@@ -17,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "tools" / "sort_variant_times.py",
+    ROOT / "tools" / "mesh_fault_readings.py",
 ]
 
 
@@ -41,6 +42,9 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import repro_torch.core.dist_sort, repro_torch.core.sample_sort\n"
         "import repro_torch.runtime, repro_torch.runtime.ranks, repro_torch.runtime.collectives\n"
         "import repro_torch.runtime.elastic, repro_torch.runtime.pipeline\n"
+        "import repro_torch.models.common, repro_torch.models.layers, repro_torch.models.mla, repro_torch.models.moe\n"
+        "import repro_torch.train.loss, repro_torch.train.train_step, repro_torch.ckpt.checkpointer\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compression\n"
         "from repro_torch.configs import registry\n"
         "for arch in registry.ARCHS: registry.get_model_api(registry.get_config(arch))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

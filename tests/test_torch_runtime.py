@@ -14,7 +14,9 @@
   (2, 4) mesh; ``bubble_fraction``;
 * ``elastic_mesh`` shrinking the pod axis and raising, beside the
   reference's shapes; the launcher and the meshes defaulting to the card
-  and raising without one; a ``reshard_state`` round trip through
+  and raising without one; the route of DTensor's gloo CUDA all-gathers
+  (``ranks._gloo_cuda_gather``) along dims 0, 1 and -1, forced on CPU
+  tensors; a ``reshard_state`` round trip through
   ``full_tensor()`` bit for bit; ``opt_state_specs`` equal to the
   reference's tree.
 
@@ -108,6 +110,26 @@ def _pod_bytes(fn, pod_of):
     return out, sum(calls)
 
 
+def _gathers(mesh24, rank) -> dict:
+    """The gloo CUDA all-gather route on CPU tensors (the route's test
+    forced true): each rank's (2, 3) block gathered over ``data`` along
+    dims 0, 1 and -1 as DTensor asks for it, a (mesh, mesh dim) group."""
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank
+
+    def original(*a):
+        raise AssertionError("the route fell through to the functional all-gather")
+
+    routed = ranks._routed
+    ranks._routed = lambda t, pg: True
+    try:
+        gather = ranks._gloo_cuda_gather(original)
+        out = {dim: gather(x, dim, (mesh24, 1)).numpy() for dim in (0, 1, -1)}
+    finally:
+        ranks._routed = routed
+    out["passes"] = ranks._gloo_cuda_gather(lambda *a: "functional")(x, 1, (mesh24, 1))  # a CPU tensor: not routed
+    return out
+
+
 def _rank_runtime(mesh8, inp):
     rank = dist.get_rank()
     mesh24 = ranks.make_mesh((2, 4), ("pod", "data"), "cpu")
@@ -127,6 +149,7 @@ def _rank_runtime(mesh8, inp):
     flat, res["flat_pod_bytes"] = _pod_bytes(
         lambda: ranks.all_reduce(x.clone(), dist.ReduceOp.SUM, ranks.axis_group(mesh24, ("pod", "data"))), pod_of)
     res["hier_minus_flat"] = float((hier - flat).abs().max())
+    res["gathers"] = _gathers(mesh24, rank)
     res["pipe"] = pipeline_forward({"w": torch.from_numpy(inp["w"])}, torch.from_numpy(inp["x"]), _block,
                                    mesh=pipes, pipe_axis="pipe").numpy()
     shrunk = elastic_mesh((4, 2, 1), ("pod", "data", "model"), devices=range(6), device_type="cpu")
@@ -211,6 +234,16 @@ def test_pipeline_equals_the_sequential_stack_and_the_reference(runs):
         assert res["pipe"].shape == (M, MB, D)
         assert float(np.abs(res["pipe"] - ref.numpy()).max()) < 1e-5
         assert float(np.abs(res["pipe"] - want["pipe"]).max()) < 1e-5
+
+
+@pytest.mark.parametrize("dim", [0, 1, -1])
+def test_gloo_cuda_gather_route_concatenates_in_rank_order(dim, runs):
+    _, mine, _ = runs
+    for rank, res in enumerate(mine):
+        pod = rank // 4
+        blocks = [np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * r for r in range(4 * pod, 4 * pod + 4)]
+        assert np.array_equal(res["gathers"][dim], np.concatenate(blocks, axis=dim))
+        assert res["gathers"]["passes"] == "functional"
 
 
 def test_bubble_fraction():
