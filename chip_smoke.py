@@ -189,11 +189,33 @@ no result line):
    faults', ``tools/mesh_fault_readings.py``); step 1's share of the wall
    time in DTensor's redistributions (clocked, synchronised), step 2's
    ms unclocked;
-16. a ``kernels`` JSON line with each kernel's launches on its path
+16. serving over a mesh (``ServeEngine(rules=...)``, ``prefill`` and
+   ``decode_step`` on DTensors, caches laid out by ``cache_specs``),
+   DeepSeek-V2-Lite at full width with its ``shard_map`` MoE dispatch,
+   after phase 15: (a) world size 1 over NCCL on (1, 1, 1), all 27 layers,
+   float32 weights from phase 9's seed, phase 9's first batch (4
+   requests, 16 new tokens): the tokens equal phase 9's, K1 exactly 27 a
+   forward and K5 once, the largest logit gap to phase 9, prefill and
+   decode ms, max allocated, and the card's memory back after the rank;
+   (b) 4 ranks sharing the card over gloo on (1, 2, 2), 2 of 27 layers,
+   bf16 compute, 4 requests of the launcher's mix, 8 new tokens, against
+   the same model unsharded on the card fed the sharded run's tokens:
+   the prefill's and each decode step's logits within limits relative to
+   the unsharded logits (set between the sound run's readings and planted
+   faults', ``tools/mesh_fault_readings.py``), the same tokens on every
+   rank, K1 2 a forward on each, the slowest rank's prefill and decode
+   ms, the share of the generate in DTensor's redistributions, max
+   allocated a rank, and the dry-run's per-device prediction of the
+   decode cell beside it (report only); (c) the same ranks at global
+   batch 1 (``kv_seq="data"``: the latent cache split along its sequence,
+   each rank attending over its half, the halves joined by log-sum-exp),
+   a 1,024-token prompt, ``max_len`` 2,048, 4 decode steps, with (b)'s
+   gates;
+17. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
-   7, 8, 9, 10, 11, 12 (a) and (b), 14 (a) and (b) and 15 (a) and (b),
-   summed over the ranks; the untagged pair kernel and the
+   7, 8, 9, 10, 11, 12 (a) and (b), 14 (a) and (b), 15 (a) and (b) and
+   16 (a)-(c), summed over the ranks; the untagged pair kernel and the
    pair row kernel have no caller on any path and are checked in phase 2 only), each
    kernel's device time and launches a call (the script fails if the
    profiler gave none after three sessions), and K1's times at the
@@ -256,6 +278,7 @@ from repro_torch.launch.serve import synthetic_requests  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm  # noqa: E402
 from repro_torch.models.common import NO_SHARD, layer, tree_leaves  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve.engine import Request  # noqa: E402
 from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
@@ -266,10 +289,10 @@ from repro_torch.train.train_step import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.launch import sharding  # noqa: E402
-from repro_torch.models.common import distribute, mesh_zeros, spec_map  # noqa: E402
+from repro_torch.models.common import distribute, mesh_zeros, set_mesh, spec_map  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
+from repro_torch.launch.mesh import MeshSpec, make_smoke_mesh  # noqa: E402
 from repro_torch.runtime import hierarchical_psum, int8_psum  # noqa: E402
 from repro_torch.runtime import ranks as rt_ranks  # noqa: E402
 from repro_torch.runtime.pipeline import pipeline_forward  # noqa: E402
@@ -1768,6 +1791,7 @@ def perf_gate() -> dict:
 SERVE_ARCH = "deepseek-v2-lite-16b"
 SERVE_BATCHES = (4, 16)  # requests a generate
 SERVE_NEW_TOKENS, SERVE_MAX_LEN = 16, 256  # the reference launcher's
+PHASE9_FIRST: dict = {}  # the first batch's tokens and logits, which phase 16 (a) is held to
 
 
 def sync_timed(fn, sink: list):
@@ -1794,7 +1818,19 @@ def peak_of(fn, sink: list):
     return wrapper
 
 
-def serve_batch(cfg, params, reqs: list, read_ms: float, card: str, parts: "list | None" = None) -> dict:
+def logits_kept(fn, sink: list, on: list):
+    """``fn`` (an engine's prefill or decode) with each call's logits
+    appended to ``sink`` as float32 on the host while ``on[0]``."""
+    def wrapper(*args):
+        out = fn(*args)
+        if on[0]:
+            sink.append(out[0].float().cpu())
+        return out
+    return wrapper
+
+
+def serve_batch(cfg, params, reqs: list, read_ms: float, card: str, parts: "list | None" = None,
+                keep: "dict | None" = None) -> dict:
     """Two ``generate`` runs of ``reqs`` (cold, then warm), each held to
     ``max_new_tokens`` tokens a request, L·N launches of K1 (one an MoE
     layer a forward; none without MoE) and one of K5; the same tokens
@@ -1802,13 +1838,16 @@ def serve_batch(cfg, params, reqs: list, read_ms: float, card: str, parts: "list
     share.  Returns the launches of the two runs.  With ``parts`` (a
     list), the peak is reset before every prefill and decode call, and the
     warm run's prefill and decode (batch, prompt length, ms, max
-    allocated) are appended to it."""
+    allocated) are appended to it.  With ``keep`` (a dict), the cold run's
+    tokens and every forward's logits go into it (phase 16 (a))."""
     R, N = len(reqs), SERVE_NEW_TOKENS
     eng = ServeEngine(cfg, params, registry.get_model_api(cfg), max_len=SERVE_MAX_LEN)
     prefill_ms, decode_ms, prefill_peak, decode_peak = [], [], [], []
     if parts is not None:
         eng._prefill = peak_of(eng._prefill, prefill_peak)
         eng._decode = peak_of(eng._decode, decode_peak)
+    kept, keeping = [], [keep is not None]
+    eng._prefill, eng._decode = logits_kept(eng._prefill, kept, keeping), logits_kept(eng._decode, kept, keeping)
     eng._prefill = sync_timed(eng._prefill, prefill_ms)
     eng._decode = sync_timed(eng._decode, decode_ms)
     total, outs = collections.Counter(), []
@@ -1830,6 +1869,9 @@ def serve_batch(cfg, params, reqs: list, read_ms: float, card: str, parts: "list
             fail(f"generate of {R} requests launched {got}, not {want}")
         total.update(got)
         outs.append(out)
+        if keeping[0]:
+            keep.update(tokens=out, logits=list(kept))
+            keeping[0] = False
         print(f"serve {cfg.name} R={R} N={N} {run} on {card}: prefill {prefill_ms[0]:.3f} ms, decode "
               f"{statistics.median(decode_ms):.3f} ms a step (median of {len(decode_ms)}; min {min(decode_ms):.3f}, "
               f"max {max(decode_ms):.3f}, first {decode_ms[0]:.3f}), wall {wall * 1e3:.1f} ms, "
@@ -1978,7 +2020,8 @@ def model_serving() -> dict:
     batches = []
     for R in SERVE_BATCHES:
         reqs = synthetic_requests(R, cfg.vocab_size, SERVE_NEW_TOKENS)
-        total.update(serve_batch(cfg, params, reqs, read_ms, smi()))
+        keep = PHASE9_FIRST if R == SERVE_BATCHES[0] else None
+        total.update(serve_batch(cfg, params, reqs, read_ms, smi(), keep=keep))
         batches.append((R, max(len(r.prompt) for r in reqs)))
     print(f"  max allocated while serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     moe_dispatch_checks(cfg, params, synthetic_requests(SERVE_BATCHES[-1], cfg.vocab_size, SERVE_NEW_TOKENS))
@@ -2870,6 +2913,256 @@ def mesh_training() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------- phase 16
+MESH_SERVE_FOUR_LAYERS, MESH_SERVE_FOUR_NEW = 2, 8  # (b): 2 of 27 layers, 8 new tokens
+MESH_SERVE_KV_PROMPT, MESH_SERVE_KV_MAX_LEN, MESH_SERVE_KV_STEPS = 1024, 2048, 4  # (c): batch 1, kv_seq
+# (b)'s and (c)'s limits on the logits against the unsharded model on the card fed the same tokens (in
+# the batch shards' row groups), each forward's largest gap relative to the unsharded logits' largest
+# magnitude: the prefill's, every decode step's, and the decode steps' median.  Each lies between the
+# sound run's readings and the planted faults' that it catches (tools/mesh_fault_readings.py --path
+# serve, PERF.md; H100 80GB HBM3, 700 W): sound (b) 7.8e-2, 1.05e-1 (an MoE route flipped by a bf16 near
+# tie lifts a step), 1.7e-2, (c) 1.0e-2, 1.2e-2, 9.4e-3; the attention's all-reduce skipped 1.02-1.31,
+# 1.33-1.35, 1.12-1.18; a kv_seq write on every shard -, 2.3e-1, 1.4e-1; the log-sum-exp combine as a
+# plain mean -, 1.6, 1.34
+MESH_SERVE_GAP = {"prefill": 0.3, "decode": 0.3, "decode_median": 0.05}
+
+
+def forward_log(eng, sink: list):
+    """Wrap ``eng``'s prefill and decode: each call synchronised and timed,
+    with its K1 launches, this rank's max allocated during it, its
+    (host) input tokens and its logits (float32, on the host) appended to
+    ``sink`` as a dict."""
+    def wrap(fn, kind):
+        def call(*args):
+            tokens = args[1]["tokens"] if kind == "prefill" else args[1]
+            before = launch_counts()["bucket_count_rank"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            sink.append({"kind": kind, "ms": (time.perf_counter() - t0) * 1e3,
+                         "k1": launch_counts()["bucket_count_rank"] - before,
+                         "peak": torch.cuda.max_memory_allocated(), "tokens": tokens.cpu(),
+                         "logits": out[0].float().cpu()})
+            return out
+        return call
+    eng._prefill, eng._decode = wrap(eng._prefill, "prefill"), wrap(eng._decode, "decode")
+
+
+def mesh_serve_world_one(mesh) -> dict:
+    """Phase 16 (a), the one rank of an NCCL group on a (1, 1, 1) mesh:
+    DeepSeek-V2-Lite at full width, all 27 layers, its float32 weights
+    from phase 9's seed, served through ``ServeEngine(rules=...)`` for
+    phase 9's first batch."""
+    cfg = registry.get_config(SERVE_ARCH)
+    reqs = synthetic_requests(SERVE_BATCHES[0], cfg.vocab_size, SERVE_NEW_TOKENS)
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    rules = sharding.rules_for(cfg, ShapeConfig("serve", SERVE_MAX_LEN, len(reqs), "decode"), mesh)
+    with set_mesh(mesh):
+        eng = ServeEngine(cfg, params, lm, rules=rules, max_len=SERVE_MAX_LEN)
+    del params
+    log: list = []
+    forward_log(eng, log)
+    reset_launches()
+    out = eng.generate(reqs)
+    return {"tokens": out, "log": log, "launches": dict(launch_counts()), "rules": str(rules),
+            "placements": str(eng.params["blocks"]["moe"]["wi"].placements)}
+
+
+def mesh_serve_model():
+    """(b)'s and (c)'s config: DeepSeek-V2-Lite at full width, 2 layers."""
+    return registry.get_config(SERVE_ARCH).replace(num_layers=MESH_SERVE_FOUR_LAYERS)
+
+
+def mesh_serve_kv_request(cfg) -> list:
+    """(c)'s one request: a 1,024-token prompt from seed 5."""
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, MESH_SERVE_KV_PROMPT).astype(np.int32)
+    return [Request(0, prompt, max_new_tokens=MESH_SERVE_KV_STEPS + 1)]
+
+
+def mesh_serve_four_ranks(mesh) -> dict:
+    """Phase 16 (b) and (c) on one of 4 ranks sharing the card over gloo,
+    mesh (1, 2, 2): each rank draws the 2-layer model's whole tree from
+    seed 0 and keeps its shard.  (b) 4 requests of the launcher's mix, 8
+    new tokens, with DTensor's redistributions clocked for their share;
+    (c) one 1,024-token request at ``max_len`` 2,048 under the decode
+    rules of a batch of 1 (``kv_seq="data"``), 4 decode steps."""
+    t0 = time.perf_counter()
+    cfg = mesh_serve_model()
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    out = {}
+    for case, reqs, max_len in (("b", synthetic_requests(4, cfg.vocab_size, MESH_SERVE_FOUR_NEW), SERVE_MAX_LEN),
+                                ("c", mesh_serve_kv_request(cfg), MESH_SERVE_KV_MAX_LEN)):
+        rules = sharding.rules_for(cfg, ShapeConfig("serve", max_len, len(reqs), "decode"), mesh)
+        with set_mesh(mesh):
+            eng = ServeEngine(cfg, params, lm, rules=rules, max_len=max_len)
+        params = eng.params  # laid out once: (c)'s engine finds it so
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.setdefault("setup_s", time.perf_counter() - t0)
+        log: list = []
+        forward_log(eng, log)
+        secs = [0.0]
+        undo = clock_redistributions(secs) if case == "b" else None
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            toks = eng.generate(reqs)
+        finally:
+            if undo:
+                undo()
+        wall = (time.perf_counter() - t0) * 1e3
+        if torch.distributed.get_rank():
+            for f in log:
+                f.pop("logits")
+        out[case] = {"tokens": toks, "log": log, "wall": wall, "coll_ms": secs[0] * 1e3 if undo else None,
+                     "launches": dict(launch_counts()), "rules": (rules.batch, rules.kv_seq)}
+    return out
+
+
+def teacher_forced(cfg, params, log: list, max_len: int, groups: int = 1) -> list:
+    """The unsharded model on the card fed what a sharded run's forwards
+    were fed (``forward_log``: the padded prompt, then each step's
+    tokens), one group of rows at a time: the batch shards' ``groups``
+    (contiguous, as the batch axes split the rows), so that its MoE
+    capacity is the ``shard_map`` dispatch's local one and it drops what
+    the sharded run drops.  Each forward's logits, float32 on the host."""
+    prompt = log[0]["tokens"].to(DEV)
+    L, rows = prompt.shape[1], prompt.shape[0] // groups
+    per_group = []
+    with torch.inference_mode():
+        for g in range(groups):
+            part = slice(g * rows, (g + 1) * rows)
+            cache = lm.init_cache(cfg, rows, max_len, device=DEV)
+            logits, cache = lm.prefill(params, {"tokens": prompt[part]}, cfg, NO_SHARD, cache)
+            out = [logits.float().cpu()]
+            for s, f in enumerate(log[1:]):
+                logits, cache = lm.decode_step(params, f["tokens"][part].to(DEV), cfg, NO_SHARD, cache, L + s)
+                out.append(logits.float().cpu())
+            per_group.append(out)
+            del cache
+    return [torch.cat(fwd) for fwd in zip(*per_group)]
+
+
+def batch_groups(rules_batch) -> int:
+    """Into how many row groups (1, 2, 2)'s batch axes ``rules_batch`` cut a batch."""
+    sizes = dict(zip(MESH_NAMES, MESH_FOUR))
+    return math.prod(sizes[a] for a in (rules_batch or ()))
+
+
+def logit_gaps(log: list, ref: list) -> dict:
+    """The sharded forwards' logits against ``ref``'s, each forward's
+    largest gap relative to the largest unsharded magnitude: the
+    prefill's, the worst decode step's, the decode steps' median, and
+    every forward's (``steps``)."""
+    rel = [float((f["logits"] - r).abs().max() / r.abs().max()) for f, r in zip(log, ref)]
+    return {"prefill": rel[0], "decode": max(rel[1:]), "decode_median": statistics.median(rel[1:]), "steps": rel}
+
+
+def mesh_four_serving_checks(label: str, out: list, gap: dict, want_k1: int) -> None:
+    """(b)'s or (c)'s gates over the ranks' results: the same tokens on
+    every rank, K1 ``want_k1`` a forward on each, K5 once a rank (none for
+    one request), the relative logit gaps ``gap`` within
+    ``MESH_SERVE_GAP``."""
+    first = out[0]
+    if any(r["tokens"] != first["tokens"] for r in out):
+        fail(f"phase 16 ({label}): the ranks emitted different tokens")
+    per_fwd = [[f["k1"] for f in r["log"]] for r in out]
+    if any(k != [want_k1] * len(first["log"]) for k in per_fwd):
+        fail(f"phase 16 ({label}): K1 launches a forward by rank {per_fwd}, not {want_k1}")
+    if any(r["launches"].get("sort_pairs_tile_tagged", 0) != (1 if len(first["tokens"]) > 1 else 0) for r in out):
+        fail(f"phase 16 ({label}): K5 launches by rank {[r['launches'] for r in out]}")
+    if not all(math.isfinite(v) for v in gap["steps"]):
+        fail(f"phase 16 ({label}): a logit gap is not finite: {gap}")
+    if not all(gap[k] <= MESH_SERVE_GAP[k] for k in MESH_SERVE_GAP):
+        fail(f"phase 16 ({label}): the logit gaps {gap} to the unsharded model pass the limits {MESH_SERVE_GAP}")
+
+
+def mesh_serving() -> dict:
+    """Phase 16: serving over a mesh, (a) world size 1 over NCCL, (b) and
+    (c) 4 ranks sharing the card over gloo.  Returns the launches of all
+    three, summed over the ranks."""
+    t0 = time.perf_counter()
+    card = smi()
+    total = collections.Counter()
+    full = registry.get_config(SERVE_ARCH)
+    print(f"phase 16 (serving over a mesh, {card}): {SERVE_ARCH} at full width, MoE dispatch "
+          f"{full.moe.dispatch!r}; (a) all {full.num_layers} layers, phase 9's first batch; reduced: (b) and (c) "
+          f"depth {full.num_layers} -> {MESH_SERVE_FOUR_LAYERS} layers, (b) {MESH_SERVE_FOUR_NEW} new tokens, (c) "
+          f"one {MESH_SERVE_KV_PROMPT}-token prompt, max_len {MESH_SERVE_KV_MAX_LEN}, {MESH_SERVE_KV_STEPS} decode "
+          f"steps; widths as published")
+    if not PHASE9_FIRST:
+        fail("phase 16 (a): phase 9 kept no tokens for its first batch")
+    base = torch.cuda.memory_allocated()
+    (one,) = rt_ranks.run_ranks(mesh_serve_world_one, (1, 1, 1), MESH_NAMES, backend="nccl", device="cuda")
+    allocated_back(base, "phase 16 (a)'s rank", phase=16)
+    log = one["log"]
+    gap = max(float((f["logits"] - w).abs().max()) for f, w in zip(log, PHASE9_FIRST["logits"]))
+    k1 = [f["k1"] for f in log]
+    decode_ms = [f["ms"] for f in log[1:]]
+    print(f"  (a) world size 1 over nccl, mesh (1, 1, 1), {one['rules']}, experts stored {one['placements']}: "
+          f"tokens equal phase 9's {one['tokens'] == PHASE9_FIRST['tokens']}; largest logit gap to phase 9 "
+          f"{gap!r} over {len(log)} forwards; K1 a forward {sorted(set(k1))} ({len(k1)} forwards), K5 "
+          f"{one['launches'].get('sort_pairs_tile_tagged', 0)}; prefill {log[0]['ms']:.3f} ms, decode "
+          f"{statistics.median(decode_ms):.3f} ms a step (median of {len(decode_ms)}; min {min(decode_ms):.3f}, "
+          f"max {max(decode_ms):.3f}) synchronised; max allocated {max(f['peak'] for f in log) / 2**30:.2f} GiB "
+          f"(phase 9 served the same batch without a mesh above)")
+    if one["tokens"] != PHASE9_FIRST["tokens"]:
+        fail(f"phase 16 (a): the tokens differ from phase 9's: {one['tokens']} vs {PHASE9_FIRST['tokens']}")
+    if k1 != [full.num_layers] * len(log) or one["launches"].get("sort_pairs_tile_tagged") != 1:
+        fail(f"phase 16 (a): K1 a forward {k1} (not {full.num_layers}), launches {one['launches']}")
+    total.update(one["launches"])
+
+    cfg = mesh_serve_model()
+    t_ranks = time.perf_counter()
+    ranks_out = rt_ranks.run_ranks(mesh_serve_four_ranks, MESH_FOUR, MESH_NAMES, backend="gloo", device="cuda")
+    print(f"  (b), (c): the 4 ranks took {time.perf_counter() - t_ranks:.1f} s, {ranks_out[0]['setup_s']:.1f} s of it "
+          f"drawing and laying out the model on each")
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    gaps = {}
+    for case, max_len in (("b", SERVE_MAX_LEN), ("c", MESH_SERVE_KV_MAX_LEN)):
+        out = [r[case] for r in ranks_out]
+        before = launch_counts()
+        ref = teacher_forced(cfg, params, out[0]["log"], max_len, batch_groups(out[0]["rules"][0]))
+        total.update({k: v - before[k] for k, v in launch_counts().items()})
+        gaps[case] = logit_gaps(out[0]["log"], ref)
+        slow = [max(r["log"][i]["ms"] for r in out) for i in range(len(out[0]["log"]))]
+        coll = [r["coll_ms"] for r in out]
+        share = ("" if coll[0] is None else
+                 f", {max(coll) / max(r['wall'] for r in out):.3f} of the generate in DTensor's redistributions "
+                 f"(clocked, synchronised)")
+        print(f"  ({case}) 4 ranks over gloo on {MESH_FOUR}, rules (batch, kv_seq) {out[0]['rules']}: "
+              f"{len(out[0]['tokens'])} requests, tokens the same on every rank; relative logit gaps to the unsharded "
+              f"model fed the same tokens: prefill {gaps[case]['prefill']:.3e}, decode steps "
+              f"{[f'{g:.3e}' for g in gaps[case]['steps'][1:]]}, their median {gaps[case]['decode_median']:.3e} "
+              f"(limits {MESH_SERVE_GAP}); slowest rank: prefill "
+              f"{slow[0]:.1f} ms, decode {statistics.median(slow[1:]):.1f} ms a step (median of {len(slow) - 1}), "
+              f"generate {max(r['wall'] for r in out):.1f} ms{share}; K1 a forward {MESH_SERVE_FOUR_LAYERS} on each "
+              f"rank; max allocated by rank {[round(max(f['peak'] for f in r['log']) / 2**30, 2) for r in out]} GiB")
+        mesh_four_serving_checks(case, out, gaps[case], MESH_SERVE_FOUR_LAYERS)
+        for r in out:
+            total.update(r["launches"])
+    # the dry-run's one-device prediction of (b)'s decode cell on (1, 2, 2), beside each rank's measured peak
+    b = [r["b"] for r in ranks_out]
+    L = b[0]["log"][0]["tokens"].shape[1]
+    rec = dryrun.predict(SERVE_ARCH, cfg, ShapeConfig("serve", L, len(b[0]["tokens"]), "decode"),
+                         MeshSpec(MESH_FOUR, MESH_NAMES), cache_len=SERVE_MAX_LEN, full_trace=True, hw=H100)
+    mem = rec["memory_analysis"]
+    peaks = [max(f["peak"] for f in r["log"][1:]) for r in b]
+    off = [f"{100 * (mem['total_bytes'] / p - 1):+.1f} %" for p in peaks]
+    print(f"  dry-run (report only): (b)'s decode cell on {MESH_FOUR}, R={len(b[0]['tokens'])} L={L} max_len "
+          f"{SERVE_MAX_LEN}: predicted {mem['total_bytes'] / 2**30:.2f} GiB a device (arguments "
+          f"{mem['argument_bytes'] / 2**30:.2f}, temp {mem['temp_bytes'] / 2**30:.2f}) against each rank's decode max "
+          f"allocated {[round(p / 2**30, 2) for p in peaks]} GiB ({off})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16 (serving over a mesh): {time.perf_counter() - t0:.1f} s; launches {dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     t_script = time.perf_counter()
     preflight()
@@ -2934,6 +3227,11 @@ def main() -> None:
     mesh_counts.update(mesh_training())
     if mesh_counts["bucket_count_rank"] == 0:
         fail("bucket_count_rank never launched on the mesh training path")
+    mesh_serve_counts = {name: 0 for name in KERNELS}
+    mesh_serve_counts.update(mesh_serving())
+    for name in ("bucket_count_rank", "sort_pairs_tile_tagged"):
+        if mesh_serve_counts[name] == 0:
+            fail(f"{name} never launched on the mesh serving path")
 
     launches = {
         **sort_counts,
@@ -2942,14 +3240,15 @@ def main() -> None:
     }
     for name in launches:
         launches[name] += (serve_counts[name] + verify_counts[name] + perf_counts[name] + model_counts[name]
-                           + family_counts[name] + train_counts[name] + dist_counts[name] + mesh_counts[name])
+                           + family_counts[name] + train_counts[name] + dist_counts[name] + mesh_counts[name]
+                           + mesh_serve_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
             c[name]
             for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, perf_counts,
-                      model_counts, family_counts, train_counts, dist_counts, mesh_counts)
+                      model_counts, family_counts, train_counts, dist_counts, mesh_counts, mesh_serve_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

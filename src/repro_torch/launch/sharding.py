@@ -166,12 +166,10 @@ def train_specs(cfg: ModelConfig, shape: ShapeConfig, run, mesh, params):
     like their parameters, the int8 error feedback likewise, the step and
     the count replicated.  The leaves of ``params`` are tensors or shape
     tuples."""
-    from repro_torch.configs.registry import get_model_api
     from repro_torch.optim.adamw import opt_state_specs
 
     rules = rules_for(cfg, shape, mesh)
-    tp = mesh_axis_sizes(mesh).get("model", 1)
-    pspecs = sanitize_specs(get_model_api(cfg).param_specs(cfg, rules, tp), params, mesh)
+    pspecs = param_layout(cfg, rules, mesh, params)
     opt = opt_state_specs(pspecs)
     if run.master_weights:
         opt["master"] = pspecs
@@ -180,3 +178,23 @@ def train_specs(cfg: ModelConfig, shape: ShapeConfig, run, mesh, params):
         sspecs["error_fb"] = pspecs
     rows = {"tokens": (shape.global_batch, shape.seq_len), "labels": (shape.global_batch, shape.seq_len)}
     return rules, sspecs, sanitize_specs(batch_specs(cfg, shape, rules), rows, mesh)
+
+
+# --------------------------------------------------------------- serve specs
+def serve_layout(cfg: ModelConfig, rules: AxisRules, mesh, params, tokens, cache):
+    """(parameter specs, token spec, cache specs) of a prefill or decode
+    call on ``mesh`` under ``rules``, each sanitized against its leaves'
+    shapes: the reference's ``in_shardings`` for both, and the cache's
+    ``out_shardings`` (``dryrun.build_lowered``).  The leaves are tensors
+    (plain, DTensor or meta) or shape tuples."""
+    tspec = sanitize_specs(rules.spec("batch", None), tokens, mesh)
+    return param_layout(cfg, rules, mesh, params), tspec, sanitize_specs(cache_specs(cfg, rules, cache), cache, mesh)
+
+
+def param_layout(cfg: ModelConfig, rules: AxisRules, mesh, params):
+    """The model's ``param_specs`` under ``rules``, sanitized against
+    ``params``' shapes on ``mesh``."""
+    from repro_torch.configs.registry import get_model_api
+
+    tp = mesh_axis_sizes(mesh).get("model", 1)
+    return sanitize_specs(get_model_api(cfg).param_specs(cfg, rules, tp), params, mesh)

@@ -97,18 +97,29 @@ def attention_with_lse(
     *,
     kv_len: "int | None" = None,
     scale: float | None = None,
+    q_offset: int = 0,
+    window: "int | None" = None,
+    k_positions: torch.Tensor | None = None,
 ):
     """Decode attention returning (out, lse) for cross-shard combination:
-    out = Σ exp(lse_i − lse*)·out_i / Σ exp(lse_i − lse*)."""
+    out = Σ exp(lse_i − lse*)·out_i / Σ exp(lse_i − lse*).
+
+    The port's keys may carry explicit positions (``k_positions``: one
+    shard's slice of a cache split along its sequence, or of a ring), and
+    a query at ``q_offset`` then sees only keys less than ``window``
+    positions behind it (0 or ``None``: all), as ``attention``'s mask
+    without ``causal``."""
     B, Sq, H, hd = q.shape
     KVH = k.shape[2]
     G = H // KVH
     scale = scale if scale is not None else hd ** -0.5
     qf = _scaled(q, scale).reshape(B, Sq, KVH, G, hd)
-    k_pos = torch.arange(k.shape[1], device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device) if k_positions is None else k_positions
     s = torch.einsum("bqkgh,bckh->bqkgc", qf, k.to(torch.float32))
-    if kv_len is not None:
-        s = torch.where(k_pos[None, None, None, None, :] < kv_len, s, NEG_INF)
+    if kv_len is not None or window:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        mask = _chunk_mask(q_pos, k_pos, causal=False, window=window, kv_len=kv_len)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1)

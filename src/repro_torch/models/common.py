@@ -238,9 +238,12 @@ def region(fn, args, in_specs, out_specs, *, partial=(), mesh=None):
     replicated; where the outputs are split or partial, it is a partial
     sum (each rank computed its share of it), as the transpose of
     ``shard_map`` sums the cotangents of an unmentioned axis.  A region
-    whose outputs disagree on a dim would need both, and raises.  Every
-    gradient leaves the region reduced into its argument's layout, in the
-    argument's dtype (``_ReduceGrad``)."""
+    whose outputs disagree on a dim would need both, and raises while
+    autograd records (without it, as in prefill, no gradient is made).
+    Every gradient leaves the region reduced into its argument's layout,
+    in the argument's dtype (``_ReduceGrad``).  A DTensor argument already
+    laid out as its spec reaches ``fn`` as its own local shard, so ``fn``
+    may write it in place (a cache entry)."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
@@ -255,9 +258,9 @@ def region(fn, args, in_specs, out_specs, *, partial=(), mesh=None):
     split = []
     for i in range(mesh.ndim):
         kinds = {o[i].is_replicate() for o in outs}
-        if len(kinds) > 1:
+        if len(kinds) > 1 and torch.is_grad_enabled():
             raise ValueError(f"region outputs disagree on mesh dim {names[i]!r}: some replicated, some not")
-        split.append(not kinds.pop())
+        split.append(False in kinds)
     ins, grads = [], []
     for spec in in_specs:
         if spec is None:
@@ -315,12 +318,14 @@ def _enter(x, pl, mesh):
     return _ReduceGrad.apply(x, before) if x.requires_grad else x
 
 
-def tp_region(body, x, weights, rules: AxisRules, mesh):
+def tp_region(body, x, weights, rules: AxisRules, mesh, extra=()):
     """``body(x, *weights)`` for a column- then row-parallel block (the
     MLP, attention, the shared experts): ``x`` as it lies, each weight
     gathered over FSDP with its tensor-axis split kept (MLA's latent
     projections have none).  The output is laid out as ``x`` and is a
-    partial sum over the tensor axis when any weight is split there.
+    partial sum over the tensor axis when any weight is split there;
+    ``extra`` gives the ``Spec`` of each further output (K and V, or the
+    latent, for prefill's cache), none a partial sum.
 
     Callers cast the weights to the dtype the body computes in before the
     region, as the reference casts before its matmul: the gradients' sums
@@ -328,8 +333,8 @@ def tp_region(body, x, weights, rules: AxisRules, mesh):
     parameter's once (a bf16 parameter in a float32 model)."""
     split = any(on_tensor_axis(w, rules, mesh) for w in weights)
     spec = axes_of(x, mesh)
-    return region(body, (x, *weights), (spec, *(tp_spec(w, rules, mesh) for w in weights)), (spec,),
-                  partial=(rules.tensor,) if split else (), mesh=mesh)
+    return region(body, (x, *weights), (spec, *(tp_spec(w, rules, mesh) for w in weights)), (spec, *extra),
+                  partial=[(rules.tensor,) if split else (), *[()] * len(extra)], mesh=mesh)
 
 
 def replicated(x, mesh=None):
@@ -404,13 +409,19 @@ def local_rules(rules: AxisRules) -> AxisRules:
     return dataclasses.replace(rules, enabled=False)
 
 
-def unported_on_mesh(what: str, rules: AxisRules) -> None:
+UNPORTED_ITEMS = {
+    "1b": "the ssm and hybrid families over a mesh",
+    "1c": "the encdec and vlm families over a mesh",
+    "1d": "sequence parallelism and the dense MoE oracle over a mesh",
+}
+
+
+def unported_on_mesh(what: str, rules: AxisRules, item: str) -> None:
     """Raise for a path the port does not run over a mesh yet, rather than
-    run it unsharded in silence."""
+    run it unsharded in silence; ``item`` names its ROADMAP.md entry."""
     if mesh_for(rules) is not None:
         raise NotImplementedError(
-            f"{what} over a mesh is not ported yet (ROADMAP.md, Queue 1 item 7, "
-            "'the other families and serving over a mesh')"
+            f"{what} over a mesh is not ported yet (ROADMAP.md, Queue 1 item {item}, '{UNPORTED_ITEMS[item]}')"
         )
 
 
@@ -539,8 +550,97 @@ def tree_unflatten(tree, leaves) -> object:
 
 
 def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: views, so writes reach the stack."""
-    return tree_map(lambda a: a[i], tree)
+    """Layer ``i`` of a stacked tree: views, so writes reach the stack.  A
+    DTensor leaf (a cache laid out on a mesh, its leading axis never
+    split) gives the DTensor of its local shard's entry ``i``: nothing is
+    gathered, and a write into that entry's shard reaches the stack's."""
+    return tree_map(lambda a: _entry(a, i) if is_dtensor(a) else a[i], tree)
+
+
+def _entry(x, i: int):
+    from torch.distributed.tensor import Shard
+
+    if any(p.is_shard(0) for p in x.placements):
+        raise ValueError(f"layer(): the stacked axis of a {tuple(x.shape)} DTensor is split ({x.placements})")
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in x.placements]
+    return as_dtensor(x.to_local()[i], x, pl, x.shape[1:])
+
+
+def as_dtensor(local_t: torch.Tensor, like, pl=None, shape=None):
+    """``local_t`` as the local shard of a DTensor on ``like``'s mesh, laid
+    out as ``pl`` (default ``like``'s placements) with the global
+    ``shape`` (default ``like``'s): a view of ``local_t``, nothing sent."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(like.shape if shape is None else shape)
+    stride = tuple(math.prod(shape[d + 1 :]) for d in range(len(shape)))
+    return DTensor.from_local(local_t, like.device_mesh, like.placements if pl is None else pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def clone(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x``; of a DTensor, its local shard copied, laid out alike."""
+    return as_dtensor(local(x).clone(), x) if is_dtensor(x) else torch.clone(x)
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered to the plain tensor every rank holds alike (the
+    reference's unsharded result for its caller); a tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def last_position(x: torch.Tensor) -> torch.Tensor:
+    """``x[:, -1:]``, of a DTensor whose sequence dim (1) is not split
+    taken on its local shard."""
+    if not is_dtensor(x):
+        return x[:, -1:]
+    if any(p.is_shard(1) for p in x.placements):
+        raise ValueError(f"last_position: the sequence dim of {x.placements} is split")
+    return as_dtensor(local(x)[:, -1:], x, shape=(x.shape[0], 1, *x.shape[2:]))
+
+
+# --------------------------------------------------- a cache split over kv_seq
+def seq_shard(x) -> tuple[tuple[str, ...], int, int]:
+    """(the mesh axes that split ``x``'s sequence dim (1), this rank's first
+    position, the whole length) of a cache leaf (B, S, ...): no axes, 0
+    and S for a plain tensor or a dim not split (``AxisRules.kv_seq``)."""
+    if not is_dtensor(x):
+        return (), 0, x.shape[1]
+    from repro_torch.runtime.ranks import shard_index
+
+    entry = axes_of(x, x.device_mesh)[1]
+    axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    return axes, shard_index(x.device_mesh, axes) * local(x).shape[1], x.shape[1]
+
+
+def put_owned(dst: torch.Tensor, src: torch.Tensor, start: int, lo: int, total: int) -> None:
+    """``put`` of ``src`` at ``start`` into a sequence of ``total``
+    positions of which the local ``dst`` holds ``lo`` onwards: the start
+    clamped as ``put`` clamps it, and only the positions this shard owns
+    written."""
+    n = src.shape[1]
+    start = min(max(start, 0), total - n)
+    a, b = max(start, lo), min(start + n, lo + dst.shape[1])
+    if a < b:
+        dst.narrow(1, a - lo, b - a).copy_(src.narrow(1, a - start, b - a).to(dst.dtype))
+
+
+def lse_combine(out: torch.Tensor, lse: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Attention over a sequence split over the mesh ``axes``, from each
+    shard's ``(out (B, Sq, H, hd), lse (B, Sq, H))`` of its own keys
+    (``attention_with_lse``): ``Σ exp(lse_i − lse*)·out_i / Σ exp(lse_i −
+    lse*)``, in float32.  One all-gather of the shards' (out, lse) over
+    the axes' group; every rank combines them in shard order, so the
+    group holds the same bits.  A shard with no valid key has ``lse``
+    near −1e30 and weighs nothing."""
+    from repro_torch.runtime.ranks import axis_group, gather_along
+
+    part = torch.cat([out.to(torch.float32), lse.to(torch.float32)[..., None]], -1)
+    n = math.prod(mesh.mesh.shape[mesh.mesh_dim_names.index(a)] for a in axes)
+    parts = gather_along(part[None], 0, axis_group(mesh, axes)).view(n, *part.shape)
+    o, l = parts[..., :-1], parts[..., -1]
+    w = torch.exp(l - l.amax(0))
+    return (o * w[..., None]).sum(0) / w.sum(0)[..., None]
 
 
 def unstack(tree, n: int) -> list:

@@ -107,7 +107,7 @@ def _positions(S: int, cfg, device, start: int = 0) -> torch.Tensor:
 def encode(params, frames, cfg, rules: AxisRules):
     """frames: (B, F, d) stub embeddings → the encoder output (B, F, d);
     each layer under ``remat``."""
-    unported_on_mesh("the encdec family", rules)
+    unported_on_mesh("the encdec family", rules, "1c")
     x = frames.to(cfg.dtype) + _positions(frames.shape[1], cfg, frames.device)
     x = shard(x, rules, "batch", "seq", None)
     dt = cfg.dtype
@@ -155,7 +155,7 @@ def _decoder_layer(blk, x, enc_kv, cfg, rules, *, positions, cache_kv=None, pos=
 def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
     """Training forward: batch = {'enc_frames': (B,F,d), 'tokens': (B,S)}.
     Every encoder and decoder layer runs under ``remat``."""
-    unported_on_mesh("the encdec family", rules)
+    unported_on_mesh("the encdec family", rules, "1c")
     enc_out = encode(params, batch["enc_frames"], cfg, rules)
     tokens = batch["tokens"]
     x = L.embed_tokens(params["embedding"], tokens, cfg, rules) + _positions(tokens.shape[1], cfg, tokens.device)
@@ -184,7 +184,7 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
     """Encode, then run the decoder prompt.  Returns (last logits, cache):
     the self-attention keys written into a copy of ``cache["self"]``, the
     cross-attention K/V of every layer as the new ``cache["cross"]``."""
-    unported_on_mesh("the encdec family", rules)
+    unported_on_mesh("the encdec family", rules, "1c")
     enc_out = encode(params, batch["enc_frames"], cfg, rules)
     tokens = batch["tokens"]
     x = L.embed_tokens(params["embedding"], tokens, cfg, rules) + _positions(tokens.shape[1], cfg, tokens.device)
@@ -208,7 +208,7 @@ def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict,
     """One token for every sequence against the cached encoder K/V.  The
     sinusoid row is the table's row at ``pos`` clamped into the table, as
     the reference's ``dynamic_slice_in_dim`` clamps it."""
-    unported_on_mesh("the encdec family", rules)
+    unported_on_mesh("the encdec family", rules, "1c")
     row = min(max(pos, 0), cfg.max_seq_len - 1)
     x = L.embed_tokens(params["embedding"], tokens, cfg, rules) + _positions(1, cfg, tokens.device, row)
     sk, sv = tree_map(torch.clone, cache["self"])

@@ -154,8 +154,10 @@ def embed_tokens(p: dict, tokens: torch.Tensor, cfg, rules: AxisRules) -> torch.
     else:
         # a data-dependent row gather: the table is gathered whole, in the
         # wider of its dtype and the compute dtype (the same rows), so its
-        # gradient is summed over the ranks before it is rounded
-        table = p["embed"].to(torch.promote_types(p["embed"].dtype, cfg.dtype))
+        # gradient is summed over the ranks before it is rounded; without
+        # autograd, in the compute dtype (the same rows, fewer bytes)
+        wide = torch.promote_types(p["embed"].dtype, cfg.dtype) if torch.is_grad_enabled() else cfg.dtype
+        table = p["embed"].to(wide)
         x = region(lambda table, tok: table[tok].to(cfg.dtype), (table, tokens),
                    (Spec(), rules.spec("batch", None)), (rules.spec("batch", None, None),), mesh=mesh)
     return shard(x, rules, "batch", "seq", None)

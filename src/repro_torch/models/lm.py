@@ -37,25 +37,39 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.attention import RING_INVALID, attention
+from repro_torch.models.attention import RING_INVALID, attention, attention_with_lse
 from repro_torch.models.common import (
     NO_SHARD,
     AxisRules,
     Spec,
+    axes_of,
+    clone,
     const_init,
     dense_init,
     gather_seq,
+    last_position,
+    lay_out,
     layer,
+    local,
     local_rules,
+    lse_combine,
     mesh_for,
     mesh_zeros,
+    on_tensor_axis,
+    placements,
     prepend_none_spec,
     put,
+    put_owned,
+    region,
+    relaid,
+    seq_shard,
     shard,
     tp_region,
+    tp_spec,
     tree_map,
     unported_on_mesh,
     unstack,
+    whole,
 )
 from repro_torch.models.rope import apply_mrope, apply_rope
 
@@ -120,24 +134,83 @@ def apply_attn_block(
     the full-sequence (k, v) for cache building); else one decode step that
     writes this step's keys into the cache tensors in place and returns them.
 
-    Under a mesh (training only), one ``tp_region``: each rank attends
-    over its batch rows and its heads, and the output projection's
-    partial sums over the tensor axis are reduced by ``shard``."""
+    Under a mesh, one region: each rank attends over its batch rows and
+    its heads, and the output projection's partial sums over the tensor
+    axis are reduced by ``shard``.  Without autograd recording (prefill)
+    the region also returns this layer's K and V, laid out as the
+    output's rows and the ``wk`` heads; while it records (training), the
+    output alone.  A decode step takes the cache entry (DTensors laid out
+    by ``cache_specs``) into the region and writes its local shards in
+    place (``_attn_decode_on_mesh``)."""
     mesh = mesh_for(rules)
     if mesh is not None:
         keys = list(p)
-
-        def body(x, *w):
-            return _attn_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions=positions, window=window,
-                              theta=theta, positions_thw=positions_thw)[0]
-
         # the norms' scales are used in float32, every other weight in cfg.dtype
         ws = [p[k].to(torch.float32 if k in ("q_norm", "k_norm") else cfg.dtype) for k in keys]
-        out = tp_region(body, x, ws, rules, mesh)
-        return shard(out, rules, "batch", "seq", None), None
+        if cache_kv is not None:
+            out = _attn_decode_on_mesh(keys, ws, x, cfg, rules, mesh, window=window, theta=theta,
+                                       cache_kv=cache_kv, pos=pos)
+            return shard(out, rules, "batch", "seq", None), cache_kv
+        with_kv = not torch.is_grad_enabled()
+
+        def body(x, *w):
+            out, kv = _attn_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions=positions, window=window,
+                                 theta=theta, positions_thw=positions_thw)
+            return (out, *kv) if with_kv else out
+
+        if not with_kv:
+            return shard(tp_region(body, x, ws, rules, mesh), rules, "batch", "seq", None), None
+        xs = axes_of(x, mesh)
+        kv = Spec(xs[0], xs[1], rules.tensor if on_tensor_axis(p["wk"], rules, mesh) else None, None)
+        out, k, v = tp_region(body, x, ws, rules, mesh, extra=(kv, kv))
+        return shard(out, rules, "batch", "seq", None), (k, v)
     out, new_kv = _attn_core(p, x, cfg, rules, positions=positions, window=window, theta=theta,
                              positions_thw=positions_thw, cache_kv=cache_kv, pos=pos)
     return shard(out, rules, "batch", "seq", None), new_kv
+
+
+def _attn_decode_on_mesh(keys, ws, x, cfg, rules, mesh, *, window, theta, cache_kv, pos):
+    """One decode step of attention on the mesh: one region over each
+    rank's rows, heads and cache shard.  With the cache's sequence dim
+    unsplit, each rank runs ``_attn_core`` on its local shards.  Split
+    over ``kv_seq``, only the rank that holds position ``pos`` (its ring
+    slot for a ring cache) writes this step's keys, each rank attends
+    over its own slice (``attention_with_lse``, its positions explicit)
+    and ``lse_combine`` joins the slices; the cache is never gathered.
+    The weights keep their tensor-axis split where the cache keeps the
+    heads split over that axis; else they are taken whole, and every rank
+    of a tensor group computes every head."""
+    ck = cache_kv[0]
+    axes, lo, total = seq_shard(ck)
+    split = axes_of(ck, mesh)[2] == rules.tensor
+    specs = [tp_spec(w, rules, mesh) if split else Spec() for w in ws]
+    partial = (rules.tensor,) if any(any(e is not None for e in s) for s in specs) else ()
+    positions = torch.tensor([pos], device=ck.device)
+
+    def body(x, *rest):
+        w, cache = dict(zip(keys, rest[: len(keys)])), rest[len(keys) :]
+        if not axes:
+            return _attn_core(w, x, cfg, local_rules(rules), positions=positions, window=window, theta=theta,
+                              cache_kv=cache, pos=pos)[0]
+        q, k, v = _qkv(w, x, cfg, positions=positions, theta=theta)
+        ck, cv = cache[:2]
+        if len(cache) == 3:  # a ring: this step's slot, the keys' positions in kpos (replicated)
+            kpos = cache[2]
+            slot = pos % total
+            kpos[slot] = pos
+            k_pos, kv_len = kpos[lo : lo + ck.shape[1]], None
+        else:
+            slot, kv_len = pos, pos + 1
+            k_pos = torch.arange(lo, lo + ck.shape[1], device=ck.device)
+        put_owned(ck, k, slot, lo, total)
+        put_owned(cv, v, slot, lo, total)
+        o, lse = attention_with_lse(q, ck, cv, kv_len=kv_len, q_offset=pos, window=window, k_positions=k_pos)
+        out = lse_combine(o, lse, mesh, axes).to(q.dtype)
+        return torch.einsum("bshe,hed->bsd", out, w["wo"].to(cfg.dtype))
+
+    xs = axes_of(x, mesh)
+    cspecs = [axes_of(c, mesh) for c in cache_kv]
+    return region(body, (x, *ws, *cache_kv), (xs, *specs, *cspecs), (xs,), partial=partial, mesh=mesh)
 
 
 def _attn_core(p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None):
@@ -350,16 +423,21 @@ def _store(dst: dict, src: dict) -> None:
 
 
 # ==================================================================== forward
-MESH_FAMILIES = ("dense", "moe")  # the families the port trains over a mesh
+MESH_FAMILIES = ("dense", "moe")  # the families the port trains and serves over a mesh
 
 
 def check_mesh(cfg, rules: AxisRules) -> None:
     """Raise for what the port does not run over a mesh yet: the other
-    families, vision inputs, and sequence parallelism."""
-    if cfg.family not in MESH_FAMILIES or cfg.vision_tokens:
-        unported_on_mesh(f"the {cfg.family} family", rules)
+    families, vision inputs, sequence parallelism and the dense MoE
+    oracle, each naming its ROADMAP.md item."""
+    if _is_mamba(cfg):
+        unported_on_mesh(f"the {cfg.family} family", rules, "1b")
+    elif cfg.family not in MESH_FAMILIES or cfg.vision_tokens:
+        unported_on_mesh(f"the {cfg.family} family", rules, "1c")
     if rules.seq:
-        unported_on_mesh("sequence parallelism (rules.seq)", rules)
+        unported_on_mesh("sequence parallelism (rules.seq)", rules, "1d")
+    if cfg.is_moe and cfg.moe.dispatch == "dense":
+        unported_on_mesh("MoE's dispatch='dense' (the numerics oracle)", rules, "1d")
 
 
 def remat(fn, cfg, *args):
@@ -467,13 +545,22 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
     ``prefill_inscan_cache``.
     """
     check_family(cfg)
-    unported_on_mesh("prefill", rules)
+    check_mesh(cfg, rules)
+    mesh = mesh_for(rules)
+    if mesh is not None:
+        with torch.no_grad():
+            params, batch, cache = _serve_inputs(params, batch, cache, cfg, rules, mesh)
+            return _prefill(params, batch, cfg, rules, cache, mesh)
+    return _prefill(params, batch, cfg, rules, cache, None)
+
+
+def _prefill(params, batch, cfg, rules, cache, mesh):
     tokens = batch["tokens"]
     x = x0 = _embed_in(params, batch, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     positions_thw = batch.get("positions_thw")
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    cache = tree_map(torch.clone, cache)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device) if mesh is None else mesh_zeros(mesh)
+    cache = tree_map(clone, cache)
     for i, (blk, w, th) in enumerate(_layers(params, cfg)):
         entry = layer(cache["layers"], i)
         if _is_mamba(cfg):
@@ -489,7 +576,9 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
         x, aux, kv = apply_block(
             blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
         )
-        if cfg.mla.kv_lora_rank:
+        if mesh is not None:
+            _write_prompt_on_mesh(entry, kv, cfg, mesh)
+        elif cfg.mla.kv_lora_rank:
             put(entry["c"], kv[0].to(entry["c"].dtype), 0)
             put(entry["kr"], kv[1].to(entry["kr"].dtype), 0)
         elif cfg.decode_window_cache:
@@ -497,21 +586,67 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
         else:
             put(entry[0], kv[0].to(entry[0].dtype), 0)
             put(entry[1], kv[1].to(entry[1].dtype), 0)
-    logits = _logits(params, x[:, -1:], cfg, rules)
-    return logits[:, 0], cache
+    logits = _logits(params, last_position(x), cfg, rules)
+    return whole(logits)[:, 0], cache
+
+
+def _serve_inputs(params, batch, cache, cfg, rules, mesh):
+    """The parameters, the tokens and the cache laid out on ``mesh`` as
+    the reference's jitted prefill and decode take them
+    (``launch.sharding.serve_layout``: ``param_specs``, the batch rows,
+    ``cache_specs``); what already lies so is not moved."""
+    from repro_torch.launch.sharding import serve_layout
+
+    pspecs, tspec, cspecs = serve_layout(cfg, rules, mesh, params, batch["tokens"], cache)
+    batch = dict(batch, tokens=lay_out(batch["tokens"], tspec, mesh))
+    return lay_out(params, pspecs, mesh), batch, lay_out(cache, cspecs, mesh)
+
+
+def _write_prompt_on_mesh(entry, kv, cfg, mesh) -> None:
+    """Write a layer's prompt K and V (or latent) into its cache entry on
+    the mesh: each laid out as its entry, the sequence whole, then every
+    rank writes the positions of its own shard (all of them where the
+    sequence is not split over ``kv_seq``); a ring keeps the last ``ring``
+    positions in their slots, ``kpos`` (replicated) on every rank."""
+    dsts = (entry["c"], entry["kr"]) if cfg.mla.kv_lora_rank else entry[:2]
+    for dst, src in zip(dsts, kv):
+        spec = axes_of(dst, mesh)
+        src = local(relaid(src, placements(Spec(spec[0], None, *spec[2:]), mesh), mesh))
+        axes, lo, total = seq_shard(dst)
+        if len(entry) == 3:  # a ring
+            S = src.shape[1]
+            keep = torch.arange(max(S - total, 0), S, device=src.device)
+            slots = keep % total
+            own = (slots >= lo) & (slots < lo + local(dst).shape[1])
+            local(dst)[:, slots[own] - lo] = src[:, keep[own]].to(dst.dtype)
+        else:
+            put_owned(local(dst), src, 0, lo, total)
+    if len(entry) == 3:
+        S, ring = kv[0].shape[1], entry[0].shape[1]
+        keep = torch.arange(max(S - ring, 0), S, device=local(entry[2]).device)
+        local(entry[2])[keep % ring] = keep.to(entry[2].dtype)
 
 
 def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict, pos: int):
     """One token for every sequence.  tokens: (B, 1); pos: the position."""
     check_family(cfg)
-    unported_on_mesh("decode", rules)
+    check_mesh(cfg, rules)
+    mesh = mesh_for(rules)
+    if mesh is not None:
+        with torch.no_grad():
+            params, batch, cache = _serve_inputs(params, {"tokens": tokens}, cache, cfg, rules, mesh)
+            return _decode_step(params, batch["tokens"], cfg, rules, cache, pos, mesh)
+    return _decode_step(params, tokens, cfg, rules, cache, pos, None)
+
+
+def _decode_step(params, tokens, cfg, rules, cache, pos, mesh):
     x = x0 = _embed_in(params, {"tokens": tokens}, cfg, rules)
     positions = torch.tensor([pos], device=tokens.device)
     positions_thw = None
     if cfg.mrope_sections:
         positions_thw = torch.full((3, tokens.shape[0], 1), pos, dtype=torch.int32, device=tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    cache = tree_map(torch.clone, cache)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device) if mesh is None else mesh_zeros(mesh)
+    cache = tree_map(clone, cache)
     for i, (blk, w, th) in enumerate(_layers(params, cfg)):
         entry = layer(cache["layers"], i)
         x, _, new = apply_block(
@@ -526,4 +661,4 @@ def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict,
                 params["shared"], x, x0, cfg, rules, positions=positions, cache=layer(cache["shared"], p), pos=pos,
             )
     logits = _logits(params, x, cfg, rules)
-    return logits[:, 0], cache
+    return whole(logits)[:, 0], cache

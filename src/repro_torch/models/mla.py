@@ -17,7 +17,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.attention import attention, attention_with_lse
-from repro_torch.models.common import AxisRules, Spec, dense_init, gather_seq, local_rules, mesh_for, put, shard, tp_region
+from repro_torch.models.common import (
+    AxisRules,
+    Spec,
+    axes_of,
+    dense_init,
+    gather_seq,
+    local_rules,
+    lse_combine,
+    mesh_for,
+    put_owned,
+    region,
+    seq_shard,
+    shard,
+    tp_region,
+    tp_spec,
+)
 from repro_torch.models.rope import apply_rope
 
 
@@ -76,16 +91,29 @@ def _scale(cfg) -> float:
 def mla_attention(p, x, cfg, rules: AxisRules, *, positions, chunk=1024):
     """Training/prefill forward.  Returns (out, (c, kr)): the latent for caching.
 
-    Under a mesh (training only), one ``tp_region``: each rank builds the
-    latent for its batch rows (``wdkv``/``wkr`` are not split over the
-    tensor axis) and attends over its heads; the output projection's
-    partial sums are reduced by ``shard``."""
+    Under a mesh, one region: each rank builds the latent for its batch
+    rows (``wdkv``/``wkr`` are not split over the tensor axis, so every
+    rank of a tensor group builds the same) and attends over its heads;
+    the output projection's partial sums are reduced by ``shard``.
+    Without autograd recording (prefill) the region also returns the
+    latent, laid out as the output's rows and replicated over the tensor
+    axis; while it records (training), the output alone."""
     mesh = mesh_for(rules)
     if mesh is not None:
         keys = list(p)
-        body = lambda x, *w: _mla_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions, chunk)[0]  # noqa: E731
-        out = tp_region(body, x, [p[k].to(cfg.dtype) for k in keys], rules, mesh)
-        return shard(out, rules, "batch", "seq", None), None
+        ws = [p[k].to(cfg.dtype) for k in keys]
+        if torch.is_grad_enabled():
+            body = lambda x, *w: _mla_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions, chunk)[0]  # noqa: E731
+            return shard(tp_region(body, x, ws, rules, mesh), rules, "batch", "seq", None), None
+
+        def body(x, *w):
+            out, latent = _mla_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions, chunk)
+            return (out, *latent)
+
+        xs = axes_of(x, mesh)
+        rows = Spec(xs[0], xs[1], None)
+        out, c, kr = tp_region(body, x, ws, rules, mesh, extra=(rows, rows))
+        return shard(out, rules, "batch", "seq", None), (c, kr)
     out, latent = _mla_core(p, x, cfg, rules, positions, chunk)
     return shard(out, rules, "batch", "seq", None), latent
 
@@ -108,28 +136,71 @@ def mla_decode(p, x, cfg, rules: AxisRules, *, cache, pos: int):
     cache as the reference's ``dynamic_update_slice`` clamps it, and the
     cache is returned.
     """
+    mesh = mesh_for(rules)
+    if mesh is not None:
+        return shard(_mla_decode_on_mesh(p, x, cfg, rules, mesh, cache, pos), rules, "batch", "seq", None), cache
+    out = _mla_decode_core(p, x, cfg, cache["c"], cache["kr"], pos)
+    return shard(out, rules, "batch", "seq", None), {"c": cache["c"], "kr": cache["kr"]}
+
+
+def _mla_decode_core(p, x, cfg, c, kr, pos: int, kv_seq=None):
+    """``mla_decode`` on plain tensors: the step's latent written at
+    ``pos``, attention over the cache, the output projection.  ``kv_seq``
+    = (mesh, axes, lo, total): ``c``/``kr`` are one shard of a cache split
+    along its sequence; only the shard holding ``pos`` writes it, each
+    attends over its own positions and ``lse_combine`` joins them."""
     positions = torch.tensor([pos], device=x.device)
     qn, qr = _project_q(p, x, cfg, positions)  # (B,1,H,·)
     c_t, kr_t = _latent(p, x, cfg, positions)
-    c, kr = cache["c"], cache["kr"]
-    put(c, c_t.to(c.dtype), pos)
-    put(kr, kr_t.to(kr.dtype), pos)
+    mesh, axes, lo, total = kv_seq or (None, (), 0, c.shape[1])
+    put_owned(c, c_t, pos, lo, total)
+    put_owned(kr, kr_t, pos, lo, total)
     kv_len = pos + 1
+    k_pos = torch.arange(lo, lo + c.shape[1], device=x.device) if axes else None
     if cfg.mla.absorb:
         # q̃ = qn·W_ukᵀ → attend in latent space; values are the latent too
         q_lat = torch.einsum("bshe,rhe->bshr", qn, p["wuk"].to(cfg.dtype))
         q_cat = torch.cat([q_lat, qr], -1)  # (B,1,H, r+dr)
         k_cat = torch.cat([c, kr], -1)[:, :, None, :]  # (B,S,1, r+dr)
-        o_lat, _ = attention_with_lse(q_cat, k_cat, c[:, :, None, :], kv_len=kv_len, scale=_scale(cfg))
+        o_lat, lse = attention_with_lse(q_cat, k_cat, c[:, :, None, :], kv_len=kv_len, scale=_scale(cfg),
+                                        k_positions=k_pos)
+        if axes:
+            o_lat = lse_combine(o_lat, lse, mesh, axes)
         # back to the compute dtype (a no-op in float32): torch's einsum
         # takes one dtype, where the reference's promotes to float32
         o = torch.einsum("bshr,rhe->bshe", o_lat.to(x.dtype), p["wuv"].to(cfg.dtype))
     else:
         k, v = _expand(p, c, kr, cfg)
         q = torch.cat([qn, qr], -1)
-        o = attention(q, k, v, causal=False, kv_len=kv_len, scale=_scale(cfg), matmul_bf16=cfg.attn_matmul_bf16)
-    out = torch.einsum("bshe,hed->bsd", o, p["wo"].to(cfg.dtype))
-    return shard(out, rules, "batch", "seq", None), {"c": c, "kr": kr}
+        if axes:
+            o, lse = attention_with_lse(q, k, v, kv_len=kv_len, scale=_scale(cfg), k_positions=k_pos)
+            o = lse_combine(o, lse, mesh, axes).to(q.dtype)
+        else:
+            o = attention(q, k, v, causal=False, kv_len=kv_len, scale=_scale(cfg),
+                          matmul_bf16=cfg.attn_matmul_bf16)
+    return torch.einsum("bshe,hed->bsd", o, p["wo"].to(cfg.dtype))
+
+
+def _mla_decode_on_mesh(p, x, cfg, rules, mesh, cache, pos: int):
+    """One decode step on the mesh: one region over each rank's rows,
+    heads and latent shard.  The latent cache is replicated over the
+    tensor axis and every rank of a tensor group writes it alike; split
+    over ``kv_seq``, only the owner of ``pos`` writes, and the heads are
+    taken whole where ``kv_seq`` holds the tensor axis."""
+    axes, lo, total = seq_shard(cache["c"])
+    keys = list(p)
+    ws = [p[k].to(cfg.dtype) for k in keys]
+    specs = [tp_spec(w, rules, mesh) if rules.tensor not in axes else Spec() for w in ws]
+    partial = (rules.tensor,) if any(any(e is not None for e in s) for s in specs) else ()
+    kv_seq = (mesh, axes, lo, total) if axes else None
+
+    def body(x, c, kr, *w):
+        return _mla_decode_core(dict(zip(keys, w)), x, cfg, c, kr, pos, kv_seq)
+
+    xs = axes_of(x, mesh)
+    c, kr = cache["c"], cache["kr"]
+    return region(body, (x, c, kr, *ws), (xs, axes_of(c, mesh), axes_of(kr, mesh), *specs), (xs,), partial=partial,
+                  mesh=mesh)
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype, device, *, lead: tuple[int, ...] = ()) -> dict:

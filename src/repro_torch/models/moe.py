@@ -55,6 +55,7 @@ from repro_torch.models.common import (
     shard,
     tp_region,
     tp_spec,
+    unported_on_mesh,
 )
 
 
@@ -254,9 +255,12 @@ def _moe_shard_map(p, x, cfg, rules: AxisRules, top_p, top_e):
         return None
     t = rules.tensor
     bspec = Spec(rules.batch, None, None)
-    # in the parameters' dtype: the reference casts inside the shard_map body
-    wi, wg = (_split_on(p[k], 2, rules, mesh) for k in ("wi", "wg"))
-    wo = _split_on(p["wo"], 1, rules, mesh)
+    # in the parameters' dtype while autograd records (the reference casts
+    # inside the shard_map body, so the gradients are summed in it); without
+    # it, cast first: the same values, gathered in half the bytes for bf16
+    w = {k: p[k] if torch.is_grad_enabled() else p[k].to(cfg.dtype) for k in ("wi", "wg", "wo")}
+    wi, wg = (_split_on(w[k], 2, rules, mesh) for k in ("wi", "wg"))
+    wo = _split_on(w["wo"], 1, rules, mesh)
 
     def local(x_l, tp_l, te_l, wi, wg, wo):
         y, _ = _dispatch(x_l, tp_l, te_l, {"wi": wi, "wg": wg, "wo": wo}, cap, cfg)
@@ -329,7 +333,7 @@ def apply_moe(p, x, cfg, rules: AxisRules):
     y = _moe_shard_map(p, x, cfg, rules, top_p, top_e) if m.dispatch == "shard_map" and mesh is not None else None
     if m.dispatch == "dense":
         if mesh is not None:
-            raise NotImplementedError("dispatch='dense' (the numerics oracle) is not ported over a mesh")
+            unported_on_mesh("MoE's dispatch='dense' (the numerics oracle)", rules, "1d")
         # oracle path: every expert runs on every token
         gates = (F.one_hot(top_e.long(), m.num_experts).to(torch.float32) * top_p[..., None]).sum(2)
         h = torch.einsum("bsd,edf->bsef", x, p["wi"].to(cfg.dtype))

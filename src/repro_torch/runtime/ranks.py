@@ -93,10 +93,13 @@ def run_ranks(
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        # the call goes through a file: spawn writes a child's arguments
+        # into its pipe before the child reads it, one child after another
+        with open(os.path.join(tmp, "call.pkl"), "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         mp.start_processes(
             _rank_main,
-            args=(world, backend, device_type, tuple(mesh_shape), tuple(mesh_dim_names),
-                  tmp, fn, tuple(args)),
+            args=(world, backend, device_type, tuple(mesh_shape), tuple(mesh_dim_names), tmp),
             nprocs=world,
             join=True,
             start_method="spawn",
@@ -108,7 +111,7 @@ def run_ranks(
     return results
 
 
-def _rank_main(rank, world, backend, device_type, mesh_shape, names, tmp, fn, args):
+def _rank_main(rank, world, backend, device_type, mesh_shape, names, tmp):
     import faulthandler
 
     faulthandler.enable()  # a rank that crashes in native code prints its Python stack
@@ -125,6 +128,8 @@ def _rank_main(rank, world, backend, device_type, mesh_shape, names, tmp, fn, ar
         timeout=datetime.timedelta(seconds=TIMEOUT_S),
     )
     try:
+        with open(os.path.join(tmp, "call.pkl"), "rb") as f:
+            fn, args = pickle.load(f)
         out = fn(make_mesh(mesh_shape, names, device_type), *args)
         path = os.path.join(tmp, f"rank{rank}.pkl")
         with open(path + ".part", "wb") as f:

@@ -9,14 +9,23 @@ the request's index, so the order is ``np.argsort(lens, kind="stable")``
 (the reference sorts the bare lengths, and its bitonic network may swap
 equal ones).
 
-``generate`` runs eagerly under ``torch.inference_mode()``; the model's
+``generate`` runs eagerly under ``torch.inference_mode()`` (over a mesh
+``torch.no_grad()``: DTensor's view ops raise on inference tensors); the model's
 ``prefill`` and ``decode_step`` launch the count/rank kernel K1 once an
 MoE layer.  An ``encdec`` model is prefilled against zero encoder frames
 (the stub frontend's), as in the reference.
+
+Over a mesh (``rules`` enabled, the engine made under ``common.set_mesh``
+on every rank of a ``DeviceMesh``), the engine lays the parameters out
+once by ``param_specs`` and each new cache by ``cache_specs``
+(``launch.sharding.serve_layout``), and every rank runs ``generate`` on
+its own card (SPMD): the same batch order (K5 on each rank), the
+vocab-gathered logits, so the same tokens on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -25,7 +34,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import partition
 from repro_torch.core.engine import SortEngine, _resolve_device
-from repro_torch.models.common import NO_SHARD
+from repro_torch.launch.sharding import cache_specs, param_layout, sanitize_specs
+from repro_torch.models.common import NO_SHARD, AxisRules, lay_out, mesh_for, set_mesh
+from repro_torch.runtime.ranks import mesh_device
 
 
 @dataclasses.dataclass
@@ -40,18 +51,37 @@ class ServeEngine:
     module: ``repro_torch.models.lm`` or ``encdec``) over ``params`` on
     ``device`` (``None``: the card, raising when there
     is none; ``"cpu"``: the CPU).  ``sorter`` orders the batch; by default
-    a ``SortEngine`` on the same device."""
+    a ``SortEngine`` on the same device.  With ``rules`` enabled under an
+    ambient mesh, the engine serves over that mesh on this rank's device
+    (``device``, if given, must be it)."""
 
-    def __init__(self, cfg: ModelConfig, params, model_api, *, max_len: int = 512,
+    def __init__(self, cfg: ModelConfig, params, model_api, *, rules: AxisRules = NO_SHARD, max_len: int = 512,
                  sorter: SortEngine | None = None, device=None):
-        self.cfg, self.params, self.api = cfg, params, model_api
+        self.cfg, self.api, self.rules = cfg, model_api, rules
         self.max_len = max_len
-        self.device = _resolve_device(device)
+        self.mesh = mesh_for(rules)
+        if self.mesh is None:
+            self.device = _resolve_device(device)
+        else:
+            self.device = mesh_device(self.mesh)
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"this rank serves on {self.device}, not {device}")
+            params = lay_out(params, param_layout(cfg, rules, self.mesh, params), self.mesh)
+        self.params = params
         self.sorter = sorter if sorter is not None else SortEngine(device=self.device)
         if self.sorter.device != self.device:
             raise ValueError(f"sorter runs on {self.sorter.device}, the engine on {self.device}")
-        self._prefill = lambda p, b, c: model_api.prefill(p, b, cfg, NO_SHARD, c)
-        self._decode = lambda p, t, c, pos: model_api.decode_step(p, t, cfg, NO_SHARD, c, pos)
+        self._prefill = lambda p, b, c: model_api.prefill(p, b, cfg, rules, c)
+        self._decode = lambda p, t, c, pos: model_api.decode_step(p, t, cfg, rules, c, pos)
+
+    def _new_cache(self, batch: int):
+        """A zero cache for ``batch`` sequences of ``max_len``; over a mesh,
+        laid out by ``cache_specs`` (each rank keeps its shard)."""
+        cache = self.api.init_cache(self.cfg, batch, self.max_len, device=self.device)
+        if self.mesh is None:
+            return cache
+        cspecs = sanitize_specs(cache_specs(self.cfg, self.rules, cache), cache, self.mesh)
+        return lay_out(cache, cspecs, self.mesh)
 
     # ------------------------------------------------------- batch formation
     def order_by_length(self, requests: list[Request]) -> list[Request]:
@@ -81,7 +111,9 @@ class ServeEngine:
         """Greedy tokens for every request, ``max_new_tokens`` each, keyed by id."""
         if not requests:
             return {}
-        with torch.inference_mode():
+        # over a mesh under no_grad: DTensor's views raise in inference mode
+        with (torch.inference_mode() if self.mesh is None else torch.no_grad()), (
+                set_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext()):
             requests = self.order_by_length(requests)
             toks, L = self._pad_batch(requests)
             B, cfg = toks.shape[0], self.cfg
@@ -90,7 +122,7 @@ class ServeEngine:
                 batch["enc_frames"] = torch.zeros(
                     (B, cfg.encoder_seq_len, cfg.d_model), dtype=cfg.dtype, device=self.device
                 )
-            cache = self.api.init_cache(cfg, B, self.max_len, device=self.device)
+            cache = self._new_cache(B)
             logits, cache = self._prefill(self.params, batch, cache)
             out = {r.id: [] for r in requests}
             steps = max(r.max_new_tokens for r in requests)

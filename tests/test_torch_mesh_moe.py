@@ -13,8 +13,9 @@ ranks at (2, 2, 2) ``pod/data/model``, against the reference under
   ``sorted`` with ``dispatch_sharded`` and ``expert_parallel``, and
   ``argsort``, within 1e-5 of the reference's under its mesh;
 * under a mesh with rules enabled, the families not ported over a mesh
-  (ssm, hybrid, encdec, vlm), prefill and decode raise
-  ``NotImplementedError``, and ``shard`` raises on a plain tensor; with
+  (ssm, hybrid, encdec, vlm), and prefill and decode with the ``dense``
+  MoE oracle, raise ``NotImplementedError``, and ``shard`` raises on a
+  plain tensor; with
   the rules disabled ``shard`` is the identity.
 
 The reference runs in one subprocess, the port in one spawned group of 8
@@ -157,8 +158,9 @@ def _rank_moe(mesh, inp, want):
             raised[arch] = _raises(lambda: registry.get_model_api(c).forward({}, {"tokens": tokens}, c, rules),
                                    NotImplementedError)
         api = registry.get_model_api(base)
-        raised["prefill"] = _raises(lambda: api.prefill({}, {"tokens": tokens}, base, rules, {}), NotImplementedError)
-        raised["decode"] = _raises(lambda: api.decode_step({}, tokens, base, rules, {}, 0), NotImplementedError)
+        dense = _cfg(dispatch="dense")  # serving runs over a mesh; its dense MoE oracle does not
+        raised["prefill"] = _raises(lambda: api.prefill({}, {"tokens": tokens}, dense, rules, {}), NotImplementedError)
+        raised["decode"] = _raises(lambda: api.decode_step({}, tokens, dense, rules, {}, 0), NotImplementedError)
         raised["plain_at_shard"] = _raises(lambda: shard(torch.zeros(B, S, 64), rules, "batch", "seq", None),
                                            TypeError)
         plain = torch.zeros(B, S, 64)

@@ -1,33 +1,48 @@
-"""Phase 15 (b) of ``chip_smoke.py`` run sound and with a fault planted in
-its ranks, on one CUDA card: the readings that (b)'s limits are set
+"""``chip_smoke.py``'s gated mesh phases run sound and with a fault planted
+in their ranks, on one CUDA card: the readings that their limits are set
 between.
 
-    python3 tools/mesh_fault_readings.py [--faults tensor_allreduce,norm_per_rank,global_capacity]
+    python3 tools/mesh_fault_readings.py [--path train|serve] [--faults a,b,...]
 
-The unsharded reference runs once (the 2-layer DeepSeek-V2-Lite's two
-steps on one batch), then 4 ranks sharing the card over gloo run (b) once
-sound and once for each fault.  A fault is patched into every rank's
-modules before its step is built; the code on disk is not changed:
+``--path train`` (the default) is phase 15 (b): the unsharded reference
+runs once (the 2-layer DeepSeek-V2-Lite's two steps on one batch), then 4
+ranks sharing the card over gloo run (b) once sound and once for each
+fault.  ``--path serve`` is phase 16 (b) and (c): the ranks serve (b)'s
+batch and (c)'s long prompt, and each run's logits are held to the
+unsharded 2-layer model on the card fed that run's own tokens.  A fault
+is patched into every rank's modules before its model is built; the code
+on disk is not changed:
 
-* ``tensor_allreduce``: the ``shard_map`` MoE dispatch's all-reduce over
-  the tensor axis skipped (each rank's ``d_ff`` slice taken as the whole);
-* ``norm_per_rank``: ``global_norm`` counting a replicated leaf once per
-  rank, not once;
-* ``global_capacity``: the ``shard_map`` dispatch at the capacity of all
-  the tokens in place of one rank's.
+* ``tensor_allreduce`` (train): the ``shard_map`` MoE dispatch's
+  all-reduce over the tensor axis skipped (each rank's ``d_ff`` slice
+  taken as the whole);
+* ``norm_per_rank`` (train): ``global_norm`` counting a replicated leaf
+  once per rank, not once;
+* ``global_capacity`` (train): the ``shard_map`` dispatch at the capacity
+  of all the tokens in place of one rank's;
+* ``attn_allreduce`` (serve): the attention output's all-reduce over the
+  tensor axis skipped (each rank's heads taken as the whole output);
+* ``kv_seq_every_shard`` (serve): a ``kv_seq`` cache write landing on
+  every shard (at the position's offset in each) instead of its owner's;
+* ``lse_mean`` (serve): the log-sum-exp combine of the shards' attention
+  replaced by the plain mean of their partial outputs.
 
 Prints the card's name and power limit, then one JSON line a run: the
-relative gaps ``chip_smoke.mesh_four_gaps`` reads, whether each passes
-``chip_smoke.MESH_FOUR_GAP``, whether the ranks agree, and both sides'
-losses and grad norms.  A run whose ranks raise is reported as such.
+gaps the phase reads, whether each passes its limits
+(``chip_smoke.MESH_FOUR_GAP``, ``chip_smoke.MESH_SERVE_GAP``), whether the
+ranks agree, and the readings behind them.  A run whose ranks raise is
+reported as such.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 from pathlib import Path
+
+import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -67,8 +82,45 @@ def _global_capacity() -> None:
     moe.local_capacity = global_capacity
 
 
+def _skip_attn_allreduce() -> None:
+    from repro_torch.models import common, lm, mla
+
+    for mod in (common, lm, mla):  # prefill's regions through common.tp_region, decode's in lm and mla
+        region = mod.region
+
+        def unsummed(fn, args, in_specs, out_specs, *, partial=(), mesh=None, region=region):
+            if "attn" in fn.__qualname__ or "mla" in fn.__qualname__:
+                partial = [()] * len(partial) if isinstance(partial, list) else ()  # no all-reduce
+            return region(fn, args, in_specs, out_specs, partial=partial, mesh=mesh)
+
+        mod.region = unsummed
+
+
+def _kv_seq_every_shard() -> None:
+    from repro_torch.models import common, lm, mla
+
+    def everywhere(dst, src, start, lo, total):
+        common.put(dst, src.to(dst.dtype), (start - lo) % dst.shape[1])
+
+    lm.put_owned = mla.put_owned = everywhere
+
+
+def _lse_mean() -> None:
+    from repro_torch.models import lm, mla
+    from repro_torch.runtime.ranks import axis_group, gather_along
+
+    def mean(out, lse, mesh, axes):
+        n = math.prod(mesh.mesh.shape[mesh.mesh_dim_names.index(a)] for a in axes)
+        parts = gather_along(out.to(torch.float32)[None], 0, axis_group(mesh, axes))
+        return parts.view(n, *out.shape).mean(0)
+
+    lm.lse_combine = mla.lse_combine = mean
+
+
 FAULTS = {"tensor_allreduce": _skip_tensor_allreduce, "norm_per_rank": _norm_per_rank,
           "global_capacity": _global_capacity}
+SERVE_FAULTS = {"attn_allreduce": _skip_attn_allreduce, "kv_seq_every_shard": _kv_seq_every_shard,
+                "lse_mean": _lse_mean}
 
 
 def faulty_rank(mesh, fault):
@@ -77,14 +129,51 @@ def faulty_rank(mesh, fault):
     return chip_smoke.mesh_four_ranks(mesh)
 
 
+def faulty_serving_rank(mesh, fault):
+    if fault is not None:
+        SERVE_FAULTS[fault]()
+    return chip_smoke.mesh_serve_four_ranks(mesh)
+
+
+def serve_readings(faults: list) -> None:
+    """Phase 16 (b) and (c) sound and under each serving fault, each run's
+    logits against the unsharded model fed its own tokens."""
+    cfg = chip_smoke.mesh_serve_model()
+    params = chip_smoke.lm.init(cfg, torch.Generator(device=chip_smoke.DEV).manual_seed(0))
+    for fault in [None, *faults]:
+        row = {"fault": fault or "none"}
+        try:
+            out = ranks.run_ranks(faulty_serving_rank, chip_smoke.MESH_FOUR, chip_smoke.MESH_NAMES, backend="gloo",
+                                  device="cuda", args=(fault,))
+        except Exception as e:  # a rank raised: the fault stopped the run
+            row["raised"] = f"{type(e).__name__}: {str(e)[-600:]}"
+        else:
+            for case, max_len in (("b", chip_smoke.SERVE_MAX_LEN), ("c", chip_smoke.MESH_SERVE_KV_MAX_LEN)):
+                runs = [r[case] for r in out]
+                ref = chip_smoke.teacher_forced(cfg, params, runs[0]["log"], max_len,
+                                                chip_smoke.batch_groups(runs[0]["rules"][0]))
+                gap = chip_smoke.logit_gaps(runs[0]["log"], ref)
+                row[case] = {"gap": gap, "past_limit": {k: not gap[k] <= lim
+                                                        for k, lim in chip_smoke.MESH_SERVE_GAP.items()},
+                             "ranks_agree": all(r["tokens"] == runs[0]["tokens"] for r in runs)}
+        print(json.dumps(row), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--faults", default=",".join(FAULTS), help="comma-separated, from " + ", ".join(FAULTS))
-    faults = [f for f in ap.parse_args().faults.split(",") if f]
-    unknown = sorted(set(faults) - set(FAULTS))
+    ap.add_argument("--path", choices=("train", "serve"), default="train")
+    ap.add_argument("--faults", default=None, help="comma-separated, from " + ", ".join([*FAULTS, *SERVE_FAULTS])
+                    + " (default: every fault of the path)")
+    args = ap.parse_args()
+    known = SERVE_FAULTS if args.path == "serve" else FAULTS
+    faults = [f for f in (args.faults or ",".join(known)).split(",") if f]
+    unknown = sorted(set(faults) - set(known))
     if unknown:
-        ap.error(f"unknown faults {unknown}")
+        ap.error(f"unknown faults {unknown} for --path {args.path}")
     print("card:", chip_smoke.smi(), flush=True)
+    if args.path == "serve":
+        serve_readings(faults)
+        return
     cfg, run, batch = chip_smoke.mesh_four_model()
     ref = chip_smoke.unsharded_steps(cfg, run, [batch] * chip_smoke.MESH_FOUR_STEPS)
     del batch
