@@ -211,11 +211,36 @@ no result line):
    each rank attending over its half, the halves joined by log-sum-exp),
    a 1,024-token prompt, ``max_len`` 2,048, 4 decode steps, with (b)'s
    gates;
-17. a ``kernels`` JSON line with each kernel's launches on its path
+17. the ssm and hybrid families over a mesh (the Mamba2 block split by
+   SSM heads over the tensor axis, Zamba2's shared block, mamba2's
+   sequence split), after phase 16: (a) world size 1 over NCCL on (1, 1,
+   1): Zamba2-2.7B at full width, all 54 layers, float32 weights from
+   phase 10's seed, served through ``ServeEngine(rules=...)`` for phase
+   10's first batch: the tokens equal phase 10's, K5 once and K1 never,
+   the largest logit gap to phase 10, prefill and decode ms, max
+   allocated, the card's memory back after the rank; mamba2-370m at full
+   width, all 48 layers, 3 steps of 2 x 4,096 tokens through
+   ``jit_train_step(mesh=...)``: step 1's loss and grad_norm equal in
+   bits to the unsharded step's (both under deterministic algorithms);
+   (b) 4 ranks sharing the card over gloo on (1, 2, 2) under
+   ``rules_for``: mamba2-370m (8 of 48 layers) 2 steps on one batch of 4
+   x 1,024 tokens (the sequence split over ``model``), a prefill of that
+   batch under the prefill rules and 4 requests of the launcher's mix, 8
+   new tokens; Zamba2-2.7B (6 of 54 layers, one period) 2 steps of 4 x
+   512 and the same requests; each held to the same model unsharded on
+   the card (fed the sharded run's tokens) within ``MESH_SSM_GAP`` and
+   ``MESH_SSM_SERVE_GAP`` (limits between the sound run's readings and
+   planted faults', ``tools/mesh_fault_readings.py --path ssm``), the
+   same tokens and metrics on every rank, K5 once a ``generate`` on each,
+   the share in DTensor's redistributions, max allocated a rank and the
+   bytes the head split moves a layer; (c) the same ranks at global batch
+   1 for Zamba2 (``kv_seq="data"``), a 1,024-token prompt, ``max_len``
+   2,048, 4 decode steps, with (b)'s gates;
+18. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
-   7, 8, 9, 10, 11, 12 (a) and (b), 14 (a) and (b), 15 (a) and (b) and
-   16 (a)-(c), summed over the ranks; the untagged pair kernel and the
+   7, 8, 9, 10, 11, 12 (a) and (b), 14 (a) and (b), 15 (a) and (b), 16
+   (a)-(c) and 17 (a)-(c), summed over the ranks; the untagged pair kernel and the
    pair row kernel have no caller on any path and are checked in phase 2 only), each
    kernel's device time and launches a call (the script fails if the
    profiler gave none after three sessions), and K1's times at the
@@ -1839,7 +1864,7 @@ def serve_batch(cfg, params, reqs: list, read_ms: float, card: str, parts: "list
     list), the peak is reset before every prefill and decode call, and the
     warm run's prefill and decode (batch, prompt length, ms, max
     allocated) are appended to it.  With ``keep`` (a dict), the cold run's
-    tokens and every forward's logits go into it (phase 16 (a))."""
+    tokens and every forward's logits go into it (phases 16 (a) and 17 (a))."""
     R, N = len(reqs), SERVE_NEW_TOKENS
     eng = ServeEngine(cfg, params, registry.get_model_api(cfg), max_len=SERVE_MAX_LEN)
     prefill_ms, decode_ms, prefill_peak, decode_peak = [], [], [], []
@@ -2040,6 +2065,7 @@ FAMILY_ARCHS = ("zamba2-2.7b", "mamba2-370m", "whisper-tiny", "qwen2-vl-7b")
 SSM_CHECK_LEN = 602  # 2 x 256 + 90: the inter-chunk recurrence and a padded tail
 VLM_CHECK_LEN, VLM_GRID = 1100, 32  # 1,024 vision tokens on a 32 x 32 patch grid, then text
 LEAK_BYTES = 64 << 20  # what a freed model may leave allocated on the card
+PHASE10_FIRST: dict = {}  # Zamba2's first batch's tokens and logits, which phase 17 (a) is held to
 
 
 def allocated_back(base: int, label: str, phase: int = 10) -> None:
@@ -2120,7 +2146,8 @@ def serve_family(arch: str, card: str, parts: "list | None" = None) -> dict:
     peaks = [torch.cuda.max_memory_allocated()]
     for R in SERVE_BATCHES if arch == FAMILY_ARCHS[0] else SERVE_BATCHES[:1]:
         reqs = synthetic_requests(R, cfg.vocab_size, SERVE_NEW_TOKENS)
-        total.update(serve_batch(cfg, params, reqs, read_ms, card, parts))
+        keep = PHASE10_FIRST if arch == FAMILY_ARCHS[0] and R == SERVE_BATCHES[0] else None
+        total.update(serve_batch(cfg, params, reqs, read_ms, card, parts, keep=keep))
         peaks.append(torch.cuda.max_memory_allocated())
     if parts:
         peaks += [p["peak"] for p in parts]
@@ -3061,23 +3088,25 @@ def logit_gaps(log: list, ref: list) -> dict:
     return {"prefill": rel[0], "decode": max(rel[1:]), "decode_median": statistics.median(rel[1:]), "steps": rel}
 
 
-def mesh_four_serving_checks(label: str, out: list, gap: dict, want_k1: int) -> None:
+def mesh_four_serving_checks(label: str, out: list, gap: dict, want_k1: int, limits: "dict | None" = None,
+                             phase: int = 16) -> None:
     """(b)'s or (c)'s gates over the ranks' results: the same tokens on
     every rank, K1 ``want_k1`` a forward on each, K5 once a rank (none for
-    one request), the relative logit gaps ``gap`` within
-    ``MESH_SERVE_GAP``."""
+    one request), the relative logit gaps ``gap`` within ``limits``
+    (default ``MESH_SERVE_GAP``)."""
+    limits = MESH_SERVE_GAP if limits is None else limits
     first = out[0]
     if any(r["tokens"] != first["tokens"] for r in out):
-        fail(f"phase 16 ({label}): the ranks emitted different tokens")
+        fail(f"phase {phase} ({label}): the ranks emitted different tokens")
     per_fwd = [[f["k1"] for f in r["log"]] for r in out]
     if any(k != [want_k1] * len(first["log"]) for k in per_fwd):
-        fail(f"phase 16 ({label}): K1 launches a forward by rank {per_fwd}, not {want_k1}")
+        fail(f"phase {phase} ({label}): K1 launches a forward by rank {per_fwd}, not {want_k1}")
     if any(r["launches"].get("sort_pairs_tile_tagged", 0) != (1 if len(first["tokens"]) > 1 else 0) for r in out):
-        fail(f"phase 16 ({label}): K5 launches by rank {[r['launches'] for r in out]}")
+        fail(f"phase {phase} ({label}): K5 launches by rank {[r['launches'] for r in out]}")
     if not all(math.isfinite(v) for v in gap["steps"]):
-        fail(f"phase 16 ({label}): a logit gap is not finite: {gap}")
-    if not all(gap[k] <= MESH_SERVE_GAP[k] for k in MESH_SERVE_GAP):
-        fail(f"phase 16 ({label}): the logit gaps {gap} to the unsharded model pass the limits {MESH_SERVE_GAP}")
+        fail(f"phase {phase} ({label}): a logit gap is not finite: {gap}")
+    if not all(gap[k] <= limits[k] for k in limits):
+        fail(f"phase {phase} ({label}): the logit gaps {gap} to the unsharded model pass the limits {limits}")
 
 
 def mesh_serving() -> dict:
@@ -3163,6 +3192,352 @@ def mesh_serving() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------- phase 17
+SSM_MESH_ARCH, HYBRID_MESH_ARCH = "mamba2-370m", FAMILY_ARCHS[0]
+MESH_SSM_ONE_STEPS = 3  # (a): mamba2-370m, all 48 layers, phase 11's batch (2 x 4,096 tokens)
+# (b): (arch, layers, train batch, train sequence) on (1, 2, 2) over 4 ranks sharing the card; Zamba2's 6 of
+# 54 layers are one period, so its shared block runs once
+MESH_SSM_CUTS = ((SSM_MESH_ARCH, 8, 4, 1024), (HYBRID_MESH_ARCH, 6, 4, 512))
+MESH_SSM_NEW = 8  # new tokens a request in (b)
+# (b)'s limits against the same model unsharded on the card.  Training, relative: step 1's loss and
+# grad_norm and the loss step 1's update took off its batch (as phase 15's); serving: each forward's
+# largest logit gap relative to the unsharded logits' largest magnitude (as phase 16's), mamba2's prefill
+# under the prefill rules (SP) among them.  Each lies between the sound runs' readings and the planted
+# faults' that it catches (tools/mesh_fault_readings.py --path ssm, PERF.md; H100 80GB HBM3, 700 W).
+# Training, sound mamba2 / Zamba2: 2.5e-5 / 5.6e-5, 2.3e-4 / 1.2e-3, 3.0e-4 / 2.5e-3; the gated norm over
+# the rank's own channels grad_norm 2.6e-2 (mamba2), drop 1.5e-2 / 6.5e-2; B and C from the contiguous
+# columns grad_norm 0.14 / 0.12, loss 2.8e-3 (Zamba2); a local slice for the reduce-scatter grad_norm
+# 5.7e-2, drop 0.19 (mamba2; a conv state in another rank's channels is not read in training).  Serving,
+# sound prefill / worst decode / decode median at most 3.8e-2, 6.9e-2, 4.4e-2 over (b) and (c); the norm
+# fault at least 0.30, 0.38, 0.28 (Zamba2's (c)); B and C, the conv state and mamba2's SP prefill under
+# the local slice 1.0-1.7
+MESH_SSM_GAP = {"loss": 1e-3, "grad_norm": 5e-3, "drop": 1e-2}
+MESH_SSM_SERVE_GAP = {"prefill": 0.2, "decode": 0.25, "decode_median": 0.15}
+
+
+def head_split_bytes(cfg, B: int, S: int, tp: int, sp: bool) -> dict:
+    """What one Mamba2 block's head split over a tensor axis of ``tp``
+    moves into each rank in a forward of ``B`` x ``S`` positions (bf16 or
+    float32 as ``cfg.dtype``), from shapes: ``in_proj`` and ``conv_w`` /
+    ``conv_b`` gathered whole from their tensor shards, the gated norm's
+    float32 sums of squares all-reduced, ``out_proj``'s partial sums
+    all-reduced (or, under SP, the sequence gathered on entry and the
+    partial sums reduce-scattered on exit).  An all-reduce of n bytes
+    counts 2 (tp-1)/tp n, a gather or reduce-scatter (tp-1)/tp n."""
+    s, e = cfg.ssm, torch.tensor([], dtype=cfg.dtype).element_size()
+    d_inner, nh = cfg.d_inner, cfg.ssm_heads
+    conv = d_inner + 2 * s.n_groups * s.d_state
+    part = (tp - 1) / tp
+    act = B * S * cfg.d_model * e
+    out = {"weights": part * (cfg.d_model * (d_inner + conv + nh) + (s.d_conv + 1) * conv) * e,
+           "norm": 2 * part * B * S * 4}
+    out.update({"seq_gather": part * act, "seq_scatter": part * act} if sp else {"out_allreduce": 2 * part * act})
+    out["total"] = sum(out.values())
+    return out
+
+
+def mesh_ssm_world_one(mesh) -> dict:
+    """Phase 17 (a), the one rank of an NCCL group on (1, 1, 1): Zamba2-2.7B
+    at full width, all 54 layers, its float32 weights from phase 10's
+    seed, served through ``ServeEngine(rules=...)`` for phase 10's first
+    batch; then mamba2-370m at full width, all 48 layers, 3 steps through
+    ``jit_train_step(mesh=...)``, first the unsharded step on the same
+    state and batch, both first steps under deterministic algorithms."""
+    cfg = registry.get_config(HYBRID_MESH_ARCH)
+    reqs = synthetic_requests(SERVE_BATCHES[0], cfg.vocab_size, SERVE_NEW_TOKENS)
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    rules = sharding.rules_for(cfg, ShapeConfig("serve", SERVE_MAX_LEN, len(reqs), "decode"), mesh)
+    with set_mesh(mesh):
+        eng = ServeEngine(cfg, params, lm, rules=rules, max_len=SERVE_MAX_LEN)
+    del params
+    log: list = []
+    forward_log(eng, log)
+    reset_launches()
+    out = {"serve": {"tokens": eng.generate(reqs), "log": log, "launches": dict(launch_counts()),
+                     "rules": str(rules), "placements": str(eng.params["blocks"]["mamba"]["in_proj"].placements)}}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = registry.get_config(SSM_MESH_ARCH)
+    run = mesh_run(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEV)
+    batches = [data.next_batch() for _ in range(MESH_SSM_ONE_STEPS)]
+    torch.use_deterministic_algorithms(True)
+    (plain,) = unsharded_steps(cfg, run, batches[:1])
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(0), cfg, run, lm)
+    rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, state["params"])
+    step = jit_train_step(make_train_step(cfg, run, lm, rules), mesh, sspecs, bspecs)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls = [], []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first_bits = (int(bits(m["loss"])), int(bits(m["grad_norm"])))
+    out["train"] = {"plain": plain, "metrics": metrics, "first_bits": first_bits, "walls": walls,
+                    "peak": torch.cuda.max_memory_allocated(), "rules": str(rules)}
+    del state, step
+    out["launches"] = dict(launch_counts())
+    return out
+
+
+def mesh_ssm_model(arch: str):
+    """(b)'s cut of ``arch``: (config, run, its one training batch)."""
+    _, layers_, batch, seq = next(c for c in MESH_SSM_CUTS if c[0] == arch)
+    cfg = registry.get_config(arch).replace(num_layers=layers_)
+    return cfg, mesh_run(cfg, batch, seq), SyntheticLMData(cfg, batch, seq, seed=0, device=DEV).next_batch()
+
+
+def mesh_ssm_train(mesh, cfg, run, batch) -> dict:
+    """Two steps on one batch over the ranks, under ``rules_for``, from the
+    parameters of seed 0 (each rank keeps its shard); step 1 with DTensor's
+    redistributions clocked."""
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, params)
+    params = spec_map(lambda s, x: distribute(x, s, mesh), sspecs["params"], params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = {"params": params, "opt": adamw_init(params), "step": mesh_zeros(mesh, torch.int32)}
+    step = jit_train_step(make_train_step(cfg, run, lm, rules), mesh, sspecs, bspecs)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, walls, coll = [], [], None
+    for i in range(2):
+        secs = [0.0]
+        undo = clock_redistributions(secs) if i == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            state, m = step(state, batch)
+        finally:
+            if undo:
+                undo()
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if undo:
+            coll = secs[0] * 1e3
+    return {"metrics": metrics, "walls": walls, "coll_ms": coll, "peak": torch.cuda.max_memory_allocated(),
+            "rules": (rules.seq, rules.heads)}
+
+
+def mesh_ssm_serve(mesh, cfg, params, reqs: list, max_len: int, clocked: bool) -> dict:
+    """One ``generate`` of ``reqs`` over the ranks through
+    ``ServeEngine(rules=...)``, every forward logged (``forward_log``)."""
+    rules = sharding.rules_for(cfg, ShapeConfig("serve", max_len, len(reqs), "decode"), mesh)
+    with set_mesh(mesh):
+        eng = ServeEngine(cfg, params, lm, rules=rules, max_len=max_len)
+    log: list = []
+    forward_log(eng, log)
+    secs = [0.0]
+    undo = clock_redistributions(secs) if clocked else None
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        toks = eng.generate(reqs)
+    finally:
+        if undo:
+            undo()
+    wall = (time.perf_counter() - t0) * 1e3
+    if torch.distributed.get_rank():
+        for f in log:
+            f.pop("logits")
+    return {"tokens": toks, "log": log, "wall": wall, "coll_ms": secs[0] * 1e3 if undo else None,
+            "launches": dict(launch_counts()), "rules": (rules.batch, rules.kv_seq), "params": eng.params}
+
+
+def mesh_ssm_four_ranks(mesh) -> dict:
+    """Phase 17 (b) and (c) on one of 4 ranks sharing the card over gloo,
+    mesh (1, 2, 2): mamba2-370m (8 of 48 layers) trained 2 steps on one
+    batch of 4 x 1,024 tokens (the sequence split over ``model``),
+    prefilled on that batch under the prefill rules, and serving 4
+    requests of the launcher's mix; Zamba2-2.7B (6 of 54 layers) trained 2
+    steps on 4 x 512 tokens, serving the same mix, then (c) one
+    1,024-token request at ``max_len`` 2,048 (``kv_seq="data"``)."""
+    out = {}
+    for arch, *_ in MESH_SSM_CUTS:
+        cfg, run, batch = mesh_ssm_model(arch)
+        res = {"train": mesh_ssm_train(mesh, cfg, run, batch)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+        if arch == SSM_MESH_ARCH:
+            B, S = batch["tokens"].shape
+            rules = sharding.rules_for(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
+            with set_mesh(mesh):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = lm.prefill(params, {"tokens": batch["tokens"]}, cfg, rules,
+                                       lm.init_cache(cfg, B, S, device=DEV))
+                torch.cuda.synchronize()
+            res["prefill"] = {"ms": (time.perf_counter() - t0) * 1e3, "rules": (rules.seq, rules.heads),
+                              "logits": logits.float().cpu() if torch.distributed.get_rank() == 0 else None}
+        reqs = synthetic_requests(4, cfg.vocab_size, MESH_SSM_NEW)
+        res["b"] = mesh_ssm_serve(mesh, cfg, params, reqs, SERVE_MAX_LEN, clocked=True)
+        params = res["b"].pop("params")  # laid out once: (c)'s engine finds it so
+        if arch == HYBRID_MESH_ARCH:
+            res["c"] = mesh_ssm_serve(mesh, cfg, params, mesh_serve_kv_request(cfg), MESH_SERVE_KV_MAX_LEN,
+                                      clocked=False)
+            res["c"].pop("params")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
+
+
+def mesh_ssm_readings(ranks_out: list) -> dict:
+    """The ranks' runs held to the same models unsharded on the card: per
+    arch the training gaps (``mesh_four_gaps``), mamba2's prefill gap
+    relative to the unsharded prefill's largest logit, and each serving
+    run's logit gaps against the unsharded model fed its tokens."""
+    readings = {}
+    for arch, *_ in MESH_SSM_CUTS:
+        cfg, run, batch = mesh_ssm_model(arch)
+        out = [r[arch] for r in ranks_out]
+        ref = unsharded_steps(cfg, run, [batch] * 2)
+        got = {"train": mesh_four_gaps(out[0]["train"]["metrics"], ref), "ref_train": ref}
+        params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+        if "prefill" in out[0]:
+            B, S = batch["tokens"].shape
+            with torch.inference_mode():
+                want, _ = lm.prefill(params, {"tokens": batch["tokens"]}, cfg, NO_SHARD,
+                                     lm.init_cache(cfg, B, S, device=DEV))
+            want = want.float().cpu()
+            got["prefill"] = float((out[0]["prefill"]["logits"] - want).abs().max() / want.abs().max())
+        for case, max_len in (("b", SERVE_MAX_LEN), ("c", MESH_SERVE_KV_MAX_LEN)):
+            if case in out[0]:
+                runs = [r[case] for r in out]
+                tf = teacher_forced(cfg, params, runs[0]["log"], max_len, batch_groups(runs[0]["rules"][0]))
+                got[case] = logit_gaps(runs[0]["log"], tf)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        readings[arch] = got
+    return readings
+
+
+def mesh_ssm_families() -> dict:
+    """Phase 17: the ssm and hybrid families over a mesh, (a) world size 1
+    over NCCL, (b) and (c) 4 ranks sharing the card over gloo.  Returns
+    the launches of all three, summed over the ranks."""
+    t0 = time.perf_counter()
+    card = smi()
+    total = collections.Counter()
+    full = {a: registry.get_config(a) for a in (SSM_MESH_ARCH, HYBRID_MESH_ARCH)}
+    cuts = ", ".join(f"{a} depth {full[a].num_layers} -> {n} layers, training batch {b} x {s}"
+                     for a, n, b, s in MESH_SSM_CUTS)
+    print(f"phase 17 (the ssm and hybrid families over a mesh, {card}): at full width; (a) {HYBRID_MESH_ARCH} all "
+          f"{full[HYBRID_MESH_ARCH].num_layers} layers serving phase 10's first batch, {SSM_MESH_ARCH} all "
+          f"{full[SSM_MESH_ARCH].num_layers} layers, {MESH_SSM_ONE_STEPS} steps at {TRAIN_BATCH} x {TRAIN_SEQ}; "
+          f"reduced: (b) {cuts}, 2 steps, 4 requests, {MESH_SSM_NEW} new tokens; (c) one {MESH_SERVE_KV_PROMPT}-token "
+          f"prompt, max_len {MESH_SERVE_KV_MAX_LEN}, {MESH_SERVE_KV_STEPS} decode steps; widths as published")
+    if not PHASE10_FIRST:
+        fail("phase 17 (a): phase 10 kept no tokens for Zamba2's first batch")
+    base = torch.cuda.memory_allocated()
+    env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # the rank's deterministic first steps
+    try:
+        (one,) = rt_ranks.run_ranks(mesh_ssm_world_one, (1, 1, 1), MESH_NAMES, backend="nccl", device="cuda")
+    finally:
+        if env_before is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
+    allocated_back(base, "phase 17 (a)'s rank", phase=17)
+    serve, train = one["serve"], one["train"]
+    log = serve["log"]
+    gap = max(float((f["logits"] - w).abs().max()) for f, w in zip(log, PHASE10_FIRST["logits"]))
+    decode_ms = [f["ms"] for f in log[1:]]
+    print(f"  (a) world size 1 over nccl, mesh (1, 1, 1), {serve['rules']}, in_proj stored {serve['placements']}: "
+          f"{HYBRID_MESH_ARCH} tokens equal phase 10's {serve['tokens'] == PHASE10_FIRST['tokens']}; largest logit "
+          f"gap to phase 10 {gap!r} over {len(log)} forwards; K1 {sorted({f['k1'] for f in log})} a forward, K5 "
+          f"{serve['launches'].get('sort_pairs_tile_tagged', 0)}; prefill {log[0]['ms']:.3f} ms, decode "
+          f"{statistics.median(decode_ms):.3f} ms a step (median of {len(decode_ms)}; min {min(decode_ms):.3f}, "
+          f"max {max(decode_ms):.3f}) synchronised; max allocated {max(f['peak'] for f in log) / 2**30:.2f} GiB")
+    if serve["tokens"] != PHASE10_FIRST["tokens"]:
+        fail(f"phase 17 (a): the tokens differ from phase 10's: {serve['tokens']} vs {PHASE10_FIRST['tokens']}")
+    if any(f["k1"] for f in log) or serve["launches"].get("sort_pairs_tile_tagged") != 1:
+        fail(f"phase 17 (a): K1 a forward {[f['k1'] for f in log]} (not 0), launches {serve['launches']}")
+    ms, plain = train["metrics"], train["plain"]
+    losses = [m["loss"] for m in ms]
+    print(f"  (a) {SSM_MESH_ARCH} {train['rules']}: losses {[round(x, 4) for x in losses]}, grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in ms]}; step ms (synchronised) {[round(w, 1) for w in train['walls']]} "
+          f"(steps 2-3 without deterministic algorithms), max allocated {train['peak'] / 2**30:.2f} GiB; step 1 "
+          f"against the unsharded step on the same state and batch: loss {ms[0]['loss']!r} vs {plain['loss']!r}, "
+          f"grad_norm {ms[0]['grad_norm']!r} vs {plain['grad_norm']!r}; bits equal "
+          f"{train['first_bits'] == tuple(plain['bits'])}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 17 (a): a loss is not finite: {losses}")
+    if train["first_bits"] != tuple(plain["bits"]):
+        fail("phase 17 (a): step 1's loss or grad_norm differs in bits from the unsharded step's")
+    total.update(one["launches"])
+
+    t_ranks = time.perf_counter()
+    ranks_out = rt_ranks.run_ranks(mesh_ssm_four_ranks, MESH_FOUR, MESH_NAMES, backend="gloo", device="cuda")
+    print(f"  (b), (c): the 4 ranks took {time.perf_counter() - t_ranks:.1f} s")
+    before = launch_counts()
+    readings = mesh_ssm_readings(ranks_out)
+    total.update({k: v - before[k] for k, v in launch_counts().items()})
+    for arch, n_layers, B, S in MESH_SSM_CUTS:
+        out = [r[arch] for r in ranks_out]
+        cfg = registry.get_config(arch).replace(num_layers=n_layers)
+        tr, gap = out[0]["train"], readings[arch]["train"]
+        coll = [r["train"]["coll_ms"] for r in out]
+        share = "not measured" if coll[0] is None else round(max(coll) / max(r["train"]["walls"][0] for r in out), 3)
+        hb = head_split_bytes(cfg, B // batch_groups(("data",)), S, MESH_FOUR[2], tr["rules"][0] is not None)
+        print(f"  (b) {arch} on {MESH_FOUR}, rules (seq, heads) {tr['rules']}: 2 steps of {B} x {S}: losses "
+              f"{[m['loss'] for m in tr['metrics']]!r}, grad_norm {[m['grad_norm'] for m in tr['metrics']]!r}; "
+              f"unsharded on the card: losses {[m['loss'] for m in readings[arch]['ref_train']]!r}; relative gaps: "
+              f"step 1's loss {gap['loss']:.3e}, grad_norm {gap['grad_norm']:.3e}, the loss step 1's update took "
+              f"off {gap['drop']:.3e} (limits {MESH_SSM_GAP}); step ms (slowest rank): step 1 clocked "
+              f"{max(r['train']['walls'][0] for r in out):.1f}, {share} of it in DTensor's redistributions; step 2 "
+              f"{max(r['train']['walls'][1] for r in out):.1f}; max allocated by rank "
+              f"{[round(r['train']['peak'] / 2**30, 2) for r in out]} GiB; the head split moves "
+              f"{hb['total'] / 2**20:.1f} MiB into each rank a layer's forward ({ {k: round(v / 2**20, 2) for k, v in hb.items()} } MiB)")
+        if not all(math.isfinite(m["loss"]) for r in out for m in r["train"]["metrics"]):
+            fail(f"phase 17 (b) {arch}: a loss is not finite")
+        if any(r["train"]["metrics"] != tr["metrics"] for r in out):
+            fail(f"phase 17 (b) {arch}: the ranks report different metrics")
+        if not all(gap[k] <= MESH_SSM_GAP[k] for k in MESH_SSM_GAP):
+            fail(f"phase 17 (b) {arch}: the gaps {gap} to the unsharded steps pass the limits {MESH_SSM_GAP}")
+        if "prefill" in out[0]:
+            pg = readings[arch]["prefill"]
+            print(f"  (b) {arch} prefill of the {B} x {S} batch under the prefill rules (seq, heads) "
+                  f"{out[0]['prefill']['rules']}: {max(r['prefill']['ms'] for r in out):.1f} ms (slowest rank); "
+                  f"last logits' gap to the unsharded prefill {pg:.3e} relative (limit "
+                  f"{MESH_SSM_SERVE_GAP['prefill']})")
+            if not pg <= MESH_SSM_SERVE_GAP["prefill"]:
+                fail(f"phase 17 (b) {arch}: the prefill's logit gap {pg} passes {MESH_SSM_SERVE_GAP['prefill']}")
+        for case in ("b", "c"):
+            if case not in out[0]:
+                continue
+            runs = [r[case] for r in out]
+            g = readings[arch][case]
+            slow = [max(r["log"][i]["ms"] for r in runs) for i in range(len(runs[0]["log"]))]
+            share = ("" if runs[0]["coll_ms"] is None else
+                     f", {max(r['coll_ms'] for r in runs) / max(r['wall'] for r in runs):.3f} of the generate in "
+                     f"DTensor's redistributions (clocked, synchronised)")
+            print(f"  ({case}) {arch} serving, rules (batch, kv_seq) {runs[0]['rules']}: {len(runs[0]['tokens'])} "
+                  f"requests; relative logit gaps to the unsharded model fed the same tokens: prefill "
+                  f"{g['prefill']:.3e}, decode steps {[f'{v:.3e}' for v in g['steps'][1:]]}, median "
+                  f"{g['decode_median']:.3e} (limits {MESH_SSM_SERVE_GAP}); slowest rank: prefill {slow[0]:.1f} ms, "
+                  f"decode {statistics.median(slow[1:]):.1f} ms a step, generate {max(r['wall'] for r in runs):.1f} "
+                  f"ms{share}; max allocated by rank "
+                  f"{[round(max(f['peak'] for f in r['log']) / 2**30, 2) for r in runs]} GiB")
+            mesh_four_serving_checks(f"{case}, {arch}", runs, g, 0, MESH_SSM_SERVE_GAP, phase=17)
+            for r in runs:
+                total.update(r["launches"])
+    print(f"phase 17 (the ssm and hybrid families over a mesh): {time.perf_counter() - t0:.1f} s; launches "
+          f"{dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     t_script = time.perf_counter()
     preflight()
@@ -3232,6 +3607,10 @@ def main() -> None:
     for name in ("bucket_count_rank", "sort_pairs_tile_tagged"):
         if mesh_serve_counts[name] == 0:
             fail(f"{name} never launched on the mesh serving path")
+    mesh_ssm_counts = {name: 0 for name in KERNELS}
+    mesh_ssm_counts.update(mesh_ssm_families())
+    if mesh_ssm_counts["sort_pairs_tile_tagged"] == 0:
+        fail("sort_pairs_tile_tagged never launched on the ssm and hybrid families' mesh path")
 
     launches = {
         **sort_counts,
@@ -3241,14 +3620,15 @@ def main() -> None:
     for name in launches:
         launches[name] += (serve_counts[name] + verify_counts[name] + perf_counts[name] + model_counts[name]
                            + family_counts[name] + train_counts[name] + dist_counts[name] + mesh_counts[name]
-                           + mesh_serve_counts[name])
+                           + mesh_serve_counts[name] + mesh_ssm_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
         launches[name] = sum(
             c[name]
             for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, perf_counts,
-                      model_counts, family_counts, train_counts, dist_counts, mesh_counts, mesh_serve_counts)
+                      model_counts, family_counts, train_counts, dist_counts, mesh_counts, mesh_serve_counts,
+                      mesh_ssm_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

@@ -409,10 +409,89 @@ def local_rules(rules: AxisRules) -> AxisRules:
     return dataclasses.replace(rules, enabled=False)
 
 
+# ------------------------------------------------- collectives inside a region
+# A region's body runs on plain local tensors; these join a mesh axis's
+# group there, with gradients (the reference's psum, all_gather and
+# psum_scatter inside shard_map).  They go through the c10d calls of
+# ``runtime.ranks``, which gloo carries for CUDA tensors too.
+class _SumOver(torch.autograd.Function):
+    """The group's sum on every rank; the gradient is summed likewise
+    (each rank's sum feeds its own further computation)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from repro_torch.runtime import ranks
+
+        ctx.group = group
+        return ranks.all_reduce(x.clone(), torch.distributed.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.runtime import ranks
+
+        return ranks.all_reduce(g.clone(), torch.distributed.ReduceOp.SUM, ctx.group), None
+
+
+class _GatherDim(torch.autograd.Function):
+    """The group's shards concatenated along ``dim`` in rank order; the
+    gradient is summed over the group and each rank keeps its own block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        from repro_torch.runtime.ranks import gather_along
+
+        ctx.dim, ctx.group = dim, group
+        return gather_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSumDim(torch.autograd.Function):
+    """The group's sum, each rank keeping its block of ``dim``; the
+    gradient is gathered along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_sum(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.runtime.ranks import gather_along
+
+        return gather_along(g, ctx.dim, ctx.group), None, None
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    from repro_torch.runtime import ranks
+
+    xm = x.movedim(dim, 0)
+    out = xm.new_empty((xm.shape[0] // torch.distributed.get_world_size(group), *xm.shape[1:]))
+    return ranks.reduce_scatter(out, xm, group).movedim(0, dim)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (an all-reduce), inside a region's body."""
+    return _SumOver.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x``'s shards along ``dim`` all-gathered over ``group``, inside a
+    region's body: the sequence's entry into a region under SP."""
+    return _GatherDim.apply(x, dim, group)
+
+
+def scatter_sum_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x``'s partial sums over ``group`` reduce-scattered along ``dim``,
+    inside a region's body: the sequence's exit from a region under SP."""
+    return _ScatterSumDim.apply(x, dim, group)
+
+
 UNPORTED_ITEMS = {
-    "1b": "the ssm and hybrid families over a mesh",
     "1c": "the encdec and vlm families over a mesh",
-    "1d": "sequence parallelism and the dense MoE oracle over a mesh",
+    "1d": "attention under sequence parallelism and the dense MoE oracle over a mesh",
 }
 
 
@@ -590,12 +669,13 @@ def whole(x: torch.Tensor) -> torch.Tensor:
 
 
 def last_position(x: torch.Tensor) -> torch.Tensor:
-    """``x[:, -1:]``, of a DTensor whose sequence dim (1) is not split
-    taken on its local shard."""
+    """``x[:, -1:]``; of a DTensor, taken on its local shard after the
+    sequence dim (1), where it is split (SP), is gathered."""
     if not is_dtensor(x):
         return x[:, -1:]
-    if any(p.is_shard(1) for p in x.placements):
-        raise ValueError(f"last_position: the sequence dim of {x.placements} is split")
+    from torch.distributed.tensor import Replicate
+
+    x = relaid(x, [Replicate() if p.is_shard(1) else p for p in x.placements], x.device_mesh)
     return as_dtensor(local(x)[:, -1:], x, shape=(x.shape[0], 1, *x.shape[2:]))
 
 

@@ -15,7 +15,9 @@ table whole (the index is data-dependent) and each rank looks up its own
 tokens; the MLP's weights are gathered over FSDP and keep their
 tensor-parallel split, so its output is a partial sum over the tensor
 axis, reduced by ``shard`` before the output bias; the unembed leaves the
-logits split over the vocabulary.
+logits split over the vocabulary, or, where the sequence is split over
+the tensor axis (SP, the ssm family), over the sequence with the
+vocabulary whole.
 """
 
 from __future__ import annotations
@@ -176,10 +178,14 @@ def unembed(p: dict, x: torch.Tensor, cfg, rules: AxisRules) -> torch.Tensor:
     if mesh is None:
         logits = _unembed_core(w, x, cfg, tied)
     else:
-        vocab = rules.tensor if on_tensor_axis(w, rules, mesh) else None
+        xs = axes_of(x, mesh)
+        # under SP the sequence holds the tensor axis, so the vocab stays
+        # whole (the reference's spec keeps an axis's first use only)
+        on_seq = xs[1] is not None and xs[1] == rules.tensor
+        split = on_tensor_axis(w, rules, mesh) and not on_seq
         logits = region(lambda w, x: _unembed_core(w, x, cfg, tied), (w.to(cfg.dtype), x),
-                        (tp_spec(w, rules, mesh), axes_of(x, mesh)),
-                        (Spec(*axes_of(x, mesh)[:2], vocab),), mesh=mesh)
+                        (tp_spec(w, rules, mesh) if split else Spec(), xs),
+                        (Spec(*xs[:2], rules.tensor if split else None),), mesh=mesh)
     return shard(logits, rules, "batch", "seq", "tensor")
 
 

@@ -327,8 +327,10 @@ def shared_block_specs(cfg) -> dict:
 def apply_shared_block(p, x, x0, cfg, rules, *, positions, cache=None, pos=None):
     """Zamba2's shared attention block: concat(x, embeddings) → 2d × d
     projection → attention (global, ``cfg.rope_theta``) and MLP; returns
-    (x + t, new_kv) with ``new_kv`` as ``apply_attn_block`` gives it."""
-    t = torch.einsum("bse,ed->bsd", torch.cat([x, x0], dim=-1), p["in_proj"].to(cfg.dtype))
+    (x + t, new_kv) with ``new_kv`` as ``apply_attn_block`` gives it.
+    Under a mesh the projection is one region whose output columns follow
+    ``in_proj``'s tensor-axis split, gathered whole for ``ln1``."""
+    t = _shared_in(p["in_proj"].to(cfg.dtype), x, x0, rules)
     h = L.apply_norm(p["ln1"], t, cfg)
     a, new_cache = apply_attn_block(
         p["attn"], h, cfg, rules, positions=positions, window=0, theta=cfg.rope_theta, cache_kv=cache, pos=pos,
@@ -337,6 +339,18 @@ def apply_shared_block(p, x, x0, cfg, rules, *, positions, cache=None, pos=None)
     h2 = L.apply_norm(p["ln2"], t, cfg)
     t = t + L.apply_mlp(p["mlp"], h2, cfg, rules)
     return x + t, new_cache
+
+
+def _shared_in(w, x, x0, rules):
+    def proj(x, x0, w):
+        return torch.einsum("bse,ed->bsd", torch.cat([x, x0], dim=-1), w)
+
+    mesh = mesh_for(rules)
+    if mesh is None:
+        return proj(x, x0, w)
+    xs, ws = axes_of(x, mesh), tp_spec(w, rules, mesh)
+    t = region(proj, (x, x0, w), (xs, xs, ws), (Spec(*xs[:2], ws[1]),), mesh=mesh)
+    return shard(t, rules, "batch", "seq", None)
 
 
 def _shared_after(cfg, i: int) -> "int | None":
@@ -423,19 +437,18 @@ def _store(dst: dict, src: dict) -> None:
 
 
 # ==================================================================== forward
-MESH_FAMILIES = ("dense", "moe")  # the families the port trains and serves over a mesh
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the families the port trains and serves over a mesh
 
 
 def check_mesh(cfg, rules: AxisRules) -> None:
     """Raise for what the port does not run over a mesh yet: the other
-    families, vision inputs, sequence parallelism and the dense MoE
-    oracle, each naming its ROADMAP.md item."""
-    if _is_mamba(cfg):
-        unported_on_mesh(f"the {cfg.family} family", rules, "1b")
-    elif cfg.family not in MESH_FAMILIES or cfg.vision_tokens:
+    families, vision inputs, attention under sequence parallelism (the
+    ssm family, attention-free, takes it) and the dense MoE oracle, each
+    naming its ROADMAP.md item."""
+    if cfg.family not in MESH_FAMILIES or cfg.vision_tokens:
         unported_on_mesh(f"the {cfg.family} family", rules, "1c")
-    if rules.seq:
-        unported_on_mesh("sequence parallelism (rules.seq)", rules, "1d")
+    if rules.seq and cfg.family != "ssm":
+        unported_on_mesh("attention under sequence parallelism (rules.seq)", rules, "1d")
     if cfg.is_moe and cfg.moe.dispatch == "dense":
         unported_on_mesh("MoE's dispatch='dense' (the numerics oracle)", rules, "1d")
 
@@ -453,9 +466,9 @@ def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
     """Training forward: returns (logits (B,S,V), aux_loss).
 
     Each layer's body runs under ``remat``; the hybrid family's shared
-    block stays outside it, as in the reference.  Under a mesh the dense
-    and moe families run on DTensors (``common.set_mesh``); the others
-    raise."""
+    block stays outside it, as in the reference.  Under a mesh the dense,
+    moe, ssm and hybrid families run on DTensors (``common.set_mesh``);
+    the others raise."""
     check_family(cfg)
     check_mesh(cfg, rules)
     tokens = batch["tokens"]
@@ -565,13 +578,17 @@ def _prefill(params, batch, cfg, rules, cache, mesh):
         entry = layer(cache["layers"], i)
         if _is_mamba(cfg):
             x, aux, new = apply_block(blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, cache=entry)
-            _store(entry, new)
+            if mesh is None:  # on the mesh the block wrote its entry's local shards
+                _store(entry, new)
             p = _shared_after(cfg, i)
             if p is not None:
                 x, kv = apply_shared_block(params["shared"], x, x0, cfg, rules, positions=positions)
-                ck, cv = layer(cache["shared"], p)
-                put(ck, kv[0].to(ck.dtype), 0)
-                put(cv, kv[1].to(cv.dtype), 0)
+                shared = layer(cache["shared"], p)
+                if mesh is not None:
+                    _write_prompt_on_mesh(shared, kv, cfg, mesh)
+                else:
+                    put(shared[0], kv[0].to(shared[0].dtype), 0)
+                    put(shared[1], kv[1].to(shared[1].dtype), 0)
             continue
         x, aux, kv = apply_block(
             blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
@@ -653,7 +670,7 @@ def _decode_step(params, tokens, cfg, rules, cache, pos, mesh):
             blk, x, cfg, rules, positions=positions, window=w, theta=th, aux=aux, positions_thw=positions_thw,
             cache=entry, pos=pos,
         )
-        if _is_mamba(cfg):
+        if _is_mamba(cfg) and mesh is None:  # on the mesh the block wrote its entry's local shards
             _store(entry, new)
         p = _shared_after(cfg, i)
         if p is not None:

@@ -13,7 +13,7 @@ ranks at (2, 2, 2) ``pod/data/model``, against the reference under
   ``sorted`` with ``dispatch_sharded`` and ``expert_parallel``, and
   ``argsort``, within 1e-5 of the reference's under its mesh;
 * under a mesh with rules enabled, the families not ported over a mesh
-  (ssm, hybrid, encdec, vlm), and prefill and decode with the ``dense``
+  (encdec, vlm), and prefill and decode with the ``dense``
   MoE oracle, raise ``NotImplementedError``, and ``shard`` raises on a
   plain tensor; with
   the rules disabled ``shard`` is the identity.
@@ -153,7 +153,7 @@ def _rank_moe(mesh, inp, want):
             res[name] = {"y": y.full_tensor().numpy(), "aux": float(aux.full_tensor())}
         tokens = distribute(torch.zeros((B, S), dtype=torch.int64), Spec(rules.batch, None), mesh)
         raised = {}
-        for arch in ("mamba2-370m", "zamba2-2.7b", "whisper-tiny", "qwen2-vl-7b"):
+        for arch in ("whisper-tiny", "qwen2-vl-7b"):
             c = registry.get_config(arch, smoke=True)
             raised[arch] = _raises(lambda: registry.get_model_api(c).forward({}, {"tokens": tokens}, c, rules),
                                    NotImplementedError)
@@ -212,7 +212,7 @@ def test_pjit_dispatch_matches_the_reference(name, runs):
         assert abs(res[name]["aux"] - want[name]["aux"]) <= 1e-6
 
 
-@pytest.mark.parametrize("what", ["mamba2-370m", "zamba2-2.7b", "whisper-tiny", "qwen2-vl-7b", "prefill", "decode",
+@pytest.mark.parametrize("what", ["whisper-tiny", "qwen2-vl-7b", "prefill", "decode",
                                   "plain_at_shard", "disabled_is_identity"])
 def test_unported_paths_raise_under_a_mesh(what, runs):
     _, mine = runs

@@ -79,8 +79,7 @@ CASES = {
 }
 ENGINE = ("deepseek-v2-lite-16b", "shard_map", 8, 4, 64)  # arch, dispatch, requests, new tokens, max_len
 # what still raises under a mesh → the ROADMAP item its message names
-UNPORTED = {"mamba2-370m": "1b", "zamba2-2.7b": "1b", "whisper-tiny": "1c", "qwen2-vl-7b": "1c", "rules.seq": "1d",
-            "dispatch=dense": "1d"}
+UNPORTED = {"whisper-tiny": "1c", "qwen2-vl-7b": "1c", "rules.seq": "1d", "dispatch=dense": "1d"}
 
 REFERENCE = r"""
 import os, sys, pickle, dataclasses, time

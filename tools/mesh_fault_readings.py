@@ -2,16 +2,18 @@
 in their ranks, on one CUDA card: the readings that their limits are set
 between.
 
-    python3 tools/mesh_fault_readings.py [--path train|serve] [--faults a,b,...]
+    python3 tools/mesh_fault_readings.py [--path train|serve|ssm] [--faults a,b,...]
 
 ``--path train`` (the default) is phase 15 (b): the unsharded reference
 runs once (the 2-layer DeepSeek-V2-Lite's two steps on one batch), then 4
 ranks sharing the card over gloo run (b) once sound and once for each
 fault.  ``--path serve`` is phase 16 (b) and (c): the ranks serve (b)'s
 batch and (c)'s long prompt, and each run's logits are held to the
-unsharded 2-layer model on the card fed that run's own tokens.  A fault
-is patched into every rank's modules before its model is built; the code
-on disk is not changed:
+unsharded 2-layer model on the card fed that run's own tokens.  ``--path
+ssm`` is phase 17 (b) and (c): the ranks train, prefill and serve the
+cut mamba2-370m and Zamba2-2.7B, each run held to the same model
+unsharded on the card.  A fault is patched into every rank's modules
+before its model is built; the code on disk is not changed:
 
 * ``tensor_allreduce`` (train): the ``shard_map`` MoE dispatch's
   all-reduce over the tensor axis skipped (each rank's ``d_ff`` slice
@@ -25,11 +27,20 @@ on disk is not changed:
 * ``kv_seq_every_shard`` (serve): a ``kv_seq`` cache write landing on
   every shard (at the position's offset in each) instead of its owner's;
 * ``lse_mean`` (serve): the log-sum-exp combine of the shards' attention
-  replaced by the plain mean of their partial outputs.
+  replaced by the plain mean of their partial outputs;
+* ``norm_own_channels`` (ssm): the Mamba2 gated norm's mean of squares
+  over the rank's own channels, not all-reduced over the tensor axis;
+* ``bc_contiguous`` (ssm): B and C read from the first columns of the
+  rank's contiguous shard of ``in_proj``, not from B's and C's columns;
+* ``conv_other_channels`` (ssm): the conv state written into the
+  channels of the next rank's shard of the conv cache;
+* ``sp_local_slice`` (ssm): under the sequence split, each rank keeping
+  its own block of its partial sums in place of the reduce-scatter.
 
 Prints the card's name and power limit, then one JSON line a run: the
 gaps the phase reads, whether each passes its limits
-(``chip_smoke.MESH_FOUR_GAP``, ``chip_smoke.MESH_SERVE_GAP``), whether the
+(``chip_smoke.MESH_FOUR_GAP``, ``chip_smoke.MESH_SERVE_GAP``,
+``chip_smoke.MESH_SSM_GAP`` and ``MESH_SSM_SERVE_GAP``), whether the
 ranks agree, and the readings behind them.  A run whose ranks raise is
 reported as such.
 """
@@ -117,10 +128,48 @@ def _lse_mean() -> None:
     lm.lse_combine = mla.lse_combine = mean
 
 
+def _ssm_norm_own_channels() -> None:
+    from repro_torch.models import ssm
+
+    ssm._mean_square = lambda gf, group, d_inner: gf.square().mean(-1, keepdim=True)
+
+
+def _ssm_bc_contiguous() -> None:
+    from repro_torch.models import ssm
+
+    head_columns = ssm._head_columns
+
+    def contiguous(cfg, rank, size):
+        runs = head_columns(cfg, rank, size)
+        width = (2 * cfg.d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state + cfg.ssm_heads) // size
+        n = runs[2][1]
+        return [runs[0], runs[1], (rank * width, n), (rank * width + n, n), runs[4]]
+
+    ssm._head_columns = contiguous
+
+
+def _ssm_conv_other_channels() -> None:
+    from repro_torch.models import ssm
+
+    owned, tp = ssm._owned_channels, chip_smoke.MESH_FOUR[2]
+    ssm._owned_channels = lambda rank, width: owned((rank + 1) % tp, width)
+
+
+def _ssm_sp_local_slice() -> None:
+    import torch.distributed as dist
+
+    from repro_torch.models import ssm
+
+    ssm.scatter_sum_dim = lambda x, dim, group: x.chunk(dist.get_world_size(group), dim)[dist.get_rank(group)]
+
+
 FAULTS = {"tensor_allreduce": _skip_tensor_allreduce, "norm_per_rank": _norm_per_rank,
           "global_capacity": _global_capacity}
 SERVE_FAULTS = {"attn_allreduce": _skip_attn_allreduce, "kv_seq_every_shard": _kv_seq_every_shard,
                 "lse_mean": _lse_mean}
+SSM_FAULTS = {"norm_own_channels": _ssm_norm_own_channels, "bc_contiguous": _ssm_bc_contiguous,
+              "conv_other_channels": _ssm_conv_other_channels, "sp_local_slice": _ssm_sp_local_slice}
+PATHS = {"train": FAULTS, "serve": SERVE_FAULTS, "ssm": SSM_FAULTS}
 
 
 def faulty_rank(mesh, fault):
@@ -133,6 +182,38 @@ def faulty_serving_rank(mesh, fault):
     if fault is not None:
         SERVE_FAULTS[fault]()
     return chip_smoke.mesh_serve_four_ranks(mesh)
+
+
+def faulty_ssm_rank(mesh, fault):
+    if fault is not None:
+        SSM_FAULTS[fault]()
+    return chip_smoke.mesh_ssm_four_ranks(mesh)
+
+
+def ssm_readings(faults: list) -> None:
+    """Phase 17 (b) and (c) sound and under each Mamba2 fault: each arch's
+    training gaps, mamba2's prefill gap and every serving run's logit
+    gaps against the same model unsharded on the card."""
+    limits = {"train": chip_smoke.MESH_SSM_GAP, "serve": chip_smoke.MESH_SSM_SERVE_GAP}
+    for fault in [None, *faults]:
+        row = {"fault": fault or "none"}
+        try:
+            out = ranks.run_ranks(faulty_ssm_rank, chip_smoke.MESH_FOUR, chip_smoke.MESH_NAMES, backend="gloo",
+                                  device="cuda", args=(fault,))
+        except Exception as e:  # a rank raised: the fault stopped the run
+            row["raised"] = f"{type(e).__name__}: {str(e)[-600:]}"
+        else:
+            for arch, got in chip_smoke.mesh_ssm_readings(out).items():
+                got.pop("ref_train")
+                past = {k: not got["train"][k] <= lim for k, lim in limits["train"].items()}
+                if "prefill" in got:
+                    past["prefill"] = not got["prefill"] <= limits["serve"]["prefill"]
+                for case in ("b", "c"):
+                    if case in got:
+                        past[case] = [k for k, lim in limits["serve"].items() if not got[case][k] <= lim]
+                row[arch] = {"readings": got, "past_limit": past,
+                             "ranks_agree": all(r[arch]["b"]["tokens"] == out[0][arch]["b"]["tokens"] for r in out)}
+        print(json.dumps(row), flush=True)
 
 
 def serve_readings(faults: list) -> None:
@@ -161,11 +242,11 @@ def serve_readings(faults: list) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("train", "serve"), default="train")
-    ap.add_argument("--faults", default=None, help="comma-separated, from " + ", ".join([*FAULTS, *SERVE_FAULTS])
-                    + " (default: every fault of the path)")
+    ap.add_argument("--path", choices=tuple(PATHS), default="train")
+    ap.add_argument("--faults", default=None, help="comma-separated, from "
+                    + ", ".join(f for path in PATHS.values() for f in path) + " (default: every fault of the path)")
     args = ap.parse_args()
-    known = SERVE_FAULTS if args.path == "serve" else FAULTS
+    known = PATHS[args.path]
     faults = [f for f in (args.faults or ",".join(known)).split(",") if f]
     unknown = sorted(set(faults) - set(known))
     if unknown:
@@ -173,6 +254,9 @@ def main() -> None:
     print("card:", chip_smoke.smi(), flush=True)
     if args.path == "serve":
         serve_readings(faults)
+        return
+    if args.path == "ssm":
+        ssm_readings(faults)
         return
     cfg, run, batch = chip_smoke.mesh_four_model()
     ref = chip_smoke.unsharded_steps(cfg, run, [batch] * chip_smoke.MESH_FOUR_STEPS)
