@@ -236,11 +236,37 @@ no result line):
    bytes the head split moves a layer; (c) the same ranks at global batch
    1 for Zamba2 (``kv_seq="data"``), a 1,024-token prompt, ``max_len``
    2,048, 4 decode steps, with (b)'s gates;
-18. a ``kernels`` JSON line with each kernel's launches on its path
+18. the encdec and vlm families over a mesh (whisper's encoder and
+   cross-attention split by heads, the cross cache under ``kv_seq``,
+   qwen2-vl's vision embeddings and M-RoPE positions laid out by batch
+   rows), after phase 17: (a) world size 1 over NCCL on (1, 1, 1):
+   whisper-tiny and qwen2-vl-7b at full width, all layers, float32 weights
+   from phase 10's seed, served through ``ServeEngine(rules=...)`` for
+   phase 10's first batch: the tokens equal phase 10's with logit gap
+   0.0, K5 once and K1 never; phase 10 (c)'s float32 prefill (encoder
+   frames; vision embeddings on the M-RoPE grid) over the mesh equal in
+   bits to the unsharded one; 3 training steps of whisper-tiny (all
+   layers, 8 x 448) and qwen2-vl-7b (2 of 28 layers, 2 x 2,048 with 1,024
+   vision tokens a row) through ``jit_train_step(mesh=...)``: step 1's
+   loss and grad_norm equal in bits to the unsharded step's, max allocated
+   under 75 GiB; (b) 4 ranks sharing the card over gloo on (1, 2, 2):
+   whisper-tiny at full depth 2 steps on one batch of 4 x 448 and 4
+   requests, 8 new tokens; qwen2-vl-7b (2 of 28 layers) one step on 4 x
+   1,280 (1,024 vision tokens a row, each row on its own M-RoPE grid),
+   then a prefill of that batch with its vision inputs and 2 decode steps;
+   each held to the same model unsharded on the card within
+   ``MESH_ENCDEC_GAP`` and ``MESH_ENCDEC_SERVE_GAP`` (limits between the
+   sound run's readings and planted faults',
+   ``tools/mesh_fault_readings.py --path encdec``), the same tokens and
+   metrics on every rank, K5 once a ``generate`` on each; (c) whisper-tiny
+   at global batch 1 (``kv_seq="data"``: the self and the cross caches
+   split along their sequence, 750 of the 1,500 frames a rank), a
+   448-token prompt, ``max_len`` 512, 4 decode steps, with (b)'s gates;
+19. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
    7, 8, 9, 10, 11, 12 (a) and (b), 14 (a) and (b), 15 (a) and (b), 16
-   (a)-(c) and 17 (a)-(c), summed over the ranks; the untagged pair kernel and the
+   (a)-(c), 17 (a)-(c) and 18 (a)-(c), summed over the ranks; the untagged pair kernel and the
    pair row kernel have no caller on any path and are checked in phase 2 only), each
    kernel's device time and launches a call (the script fails if the
    profiler gave none after three sessions), and K1's times at the
@@ -301,7 +327,7 @@ from repro_torch.roofline import H100  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.launch.serve import synthetic_requests  # noqa: E402
 from repro_torch.models import layers, lm, moe, ssm  # noqa: E402
-from repro_torch.models.common import NO_SHARD, layer, tree_leaves  # noqa: E402
+from repro_torch.models.common import NO_SHARD, layer, tree_leaves, whole  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve.engine import Request  # noqa: E402
 from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
@@ -314,7 +340,7 @@ from repro_torch.train.train_step import (  # noqa: E402
     make_train_step,
 )
 from repro_torch.launch import sharding  # noqa: E402
-from repro_torch.models.common import distribute, mesh_zeros, set_mesh, spec_map  # noqa: E402
+from repro_torch.models.common import distribute, lay_out, mesh_zeros, set_mesh, spec_map  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import MeshSpec, make_smoke_mesh  # noqa: E402
@@ -2066,6 +2092,7 @@ SSM_CHECK_LEN = 602  # 2 x 256 + 90: the inter-chunk recurrence and a padded tai
 VLM_CHECK_LEN, VLM_GRID = 1100, 32  # 1,024 vision tokens on a 32 x 32 patch grid, then text
 LEAK_BYTES = 64 << 20  # what a freed model may leave allocated on the card
 PHASE10_FIRST: dict = {}  # Zamba2's first batch's tokens and logits, which phase 17 (a) is held to
+PHASE10_KEPT: dict = {}  # the same of whisper-tiny and qwen2-vl-7b, by arch, which phase 18 (a) is held to
 
 
 def allocated_back(base: int, label: str, phase: int = 10) -> None:
@@ -2146,7 +2173,9 @@ def serve_family(arch: str, card: str, parts: "list | None" = None) -> dict:
     peaks = [torch.cuda.max_memory_allocated()]
     for R in SERVE_BATCHES if arch == FAMILY_ARCHS[0] else SERVE_BATCHES[:1]:
         reqs = synthetic_requests(R, cfg.vocab_size, SERVE_NEW_TOKENS)
-        keep = PHASE10_FIRST if arch == FAMILY_ARCHS[0] and R == SERVE_BATCHES[0] else None
+        keep = None
+        if R == SERVE_BATCHES[0]:
+            keep = PHASE10_FIRST if arch == FAMILY_ARCHS[0] else PHASE10_KEPT.setdefault(arch, {})
         total.update(serve_batch(cfg, params, reqs, read_ms, card, parts, keep=keep))
         peaks.append(torch.cuda.max_memory_allocated())
     if parts:
@@ -2731,8 +2760,9 @@ def unsharded_steps(cfg, run, batches: list) -> list:
     """Unsharded train steps (no mesh: the shard_map dispatch runs
     ``sorted``) on the state made from seed 0, one a batch; each step's
     metrics as floats and its loss's and grad_norm's bits."""
-    state = init_train_state(torch.Generator(device=DEV).manual_seed(0), cfg, run, lm)
-    step = make_train_step(cfg, run, lm)
+    api = registry.get_model_api(cfg)
+    state = init_train_state(torch.Generator(device=DEV).manual_seed(0), cfg, run, api)
+    step = make_train_step(cfg, run, api)
     out = []
     for batch in batches:
         state, m = step(state, batch)
@@ -2754,10 +2784,11 @@ def mesh_four_model():
 def mesh_four_gaps(metrics: list, ref: list) -> dict:
     """(b)'s readings against the unsharded steps, relative: step 1's loss
     and grad_norm, and the loss that step 1's update took off the batch
-    (step 1's loss less step 2's, on the same batch)."""
+    (step 1's loss less step 2's, on the same batch; none after one step)."""
     gap = {k: abs(metrics[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ("loss", "grad_norm")}
-    drop, ref_drop = (m[0]["loss"] - m[1]["loss"] for m in (metrics, ref))
-    gap["drop"] = abs(drop - ref_drop) / abs(ref_drop)
+    if len(metrics) > 1:  # one step takes nothing off
+        drop, ref_drop = (m[0]["loss"] - m[1]["loss"] for m in (metrics, ref))
+        gap["drop"] = abs(drop - ref_drop) / abs(ref_drop)
     return gap
 
 
@@ -3002,10 +3033,11 @@ def mesh_serve_model():
     return registry.get_config(SERVE_ARCH).replace(num_layers=MESH_SERVE_FOUR_LAYERS)
 
 
-def mesh_serve_kv_request(cfg) -> list:
-    """(c)'s one request: a 1,024-token prompt from seed 5."""
-    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, MESH_SERVE_KV_PROMPT).astype(np.int32)
-    return [Request(0, prompt, max_new_tokens=MESH_SERVE_KV_STEPS + 1)]
+def mesh_serve_kv_request(cfg, length: int = MESH_SERVE_KV_PROMPT, steps: int = MESH_SERVE_KV_STEPS) -> list:
+    """(c)'s one request: a ``length``-token prompt from seed 5, ``steps``
+    decode steps."""
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, length).astype(np.int32)
+    return [Request(0, prompt, max_new_tokens=steps + 1)]
 
 
 def mesh_serve_four_ranks(mesh) -> dict:
@@ -3049,24 +3081,31 @@ def mesh_serve_four_ranks(mesh) -> dict:
     return out
 
 
-def teacher_forced(cfg, params, log: list, max_len: int, groups: int = 1) -> list:
+def teacher_forced(cfg, params, log: list, max_len: int, groups: int = 1, inputs: "dict | None" = None) -> list:
     """The unsharded model on the card fed what a sharded run's forwards
     were fed (``forward_log``: the padded prompt, then each step's
     tokens), one group of rows at a time: the batch shards' ``groups``
     (contiguous, as the batch axes split the rows), so that its MoE
     capacity is the ``shard_map`` dispatch's local one and it drops what
-    the sharded run drops.  Each forward's logits, float32 on the host."""
+    the sharded run drops.  ``inputs`` holds the prefill's other leaves
+    (default the engine's: zero encoder frames for the encdec family).
+    Each forward's logits, float32 on the host."""
+    api = registry.get_model_api(cfg)
     prompt = log[0]["tokens"].to(DEV)
     L, rows = prompt.shape[1], prompt.shape[0] // groups
+    if inputs is None:
+        inputs = {} if cfg.family != "encdec" else {
+            "enc_frames": torch.zeros((prompt.shape[0], cfg.encoder_seq_len, cfg.d_model), dtype=cfg.dtype, device=DEV)}
     per_group = []
     with torch.inference_mode():
         for g in range(groups):
             part = slice(g * rows, (g + 1) * rows)
-            cache = lm.init_cache(cfg, rows, max_len, device=DEV)
-            logits, cache = lm.prefill(params, {"tokens": prompt[part]}, cfg, NO_SHARD, cache)
+            rest = {k: v[:, part] if k == "positions_thw" else v[part] for k, v in inputs.items()}
+            cache = api.init_cache(cfg, rows, max_len, device=DEV)
+            logits, cache = api.prefill(params, {"tokens": prompt[part], **rest}, cfg, NO_SHARD, cache)
             out = [logits.float().cpu()]
             for s, f in enumerate(log[1:]):
-                logits, cache = lm.decode_step(params, f["tokens"][part].to(DEV), cfg, NO_SHARD, cache, L + s)
+                logits, cache = api.decode_step(params, f["tokens"][part].to(DEV), cfg, NO_SHARD, cache, L + s)
                 out.append(logits.float().cpu())
             per_group.append(out)
             del cache
@@ -3294,20 +3333,21 @@ def mesh_ssm_model(arch: str):
     return cfg, mesh_run(cfg, batch, seq), SyntheticLMData(cfg, batch, seq, seed=0, device=DEV).next_batch()
 
 
-def mesh_ssm_train(mesh, cfg, run, batch) -> dict:
-    """Two steps on one batch over the ranks, under ``rules_for``, from the
-    parameters of seed 0 (each rank keeps its shard); step 1 with DTensor's
-    redistributions clocked."""
-    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+def mesh_steps(mesh, cfg, run, batch, steps: int = 2) -> dict:
+    """``steps`` steps on one batch over the ranks, under ``rules_for``,
+    from the parameters of seed 0 (each rank keeps its shard); step 1 with
+    DTensor's redistributions clocked."""
+    api = registry.get_model_api(cfg)
+    params = api.init(cfg, torch.Generator(device=DEV).manual_seed(0))
     rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, params)
     params = spec_map(lambda s, x: distribute(x, s, mesh), sspecs["params"], params)
     gc.collect()
     torch.cuda.empty_cache()
     state = {"params": params, "opt": adamw_init(params), "step": mesh_zeros(mesh, torch.int32)}
-    step = jit_train_step(make_train_step(cfg, run, lm, rules), mesh, sspecs, bspecs)
+    step = jit_train_step(make_train_step(cfg, run, api, rules), mesh, sspecs, bspecs)
     torch.cuda.reset_peak_memory_stats()
     metrics, walls, coll = [], [], None
-    for i in range(2):
+    for i in range(steps):
         secs = [0.0]
         undo = clock_redistributions(secs) if i == 0 else None
         torch.cuda.synchronize()
@@ -3325,12 +3365,12 @@ def mesh_ssm_train(mesh, cfg, run, batch) -> dict:
             "rules": (rules.seq, rules.heads)}
 
 
-def mesh_ssm_serve(mesh, cfg, params, reqs: list, max_len: int, clocked: bool) -> dict:
+def mesh_generate(mesh, cfg, params, reqs: list, max_len: int, clocked: bool) -> dict:
     """One ``generate`` of ``reqs`` over the ranks through
     ``ServeEngine(rules=...)``, every forward logged (``forward_log``)."""
     rules = sharding.rules_for(cfg, ShapeConfig("serve", max_len, len(reqs), "decode"), mesh)
     with set_mesh(mesh):
-        eng = ServeEngine(cfg, params, lm, rules=rules, max_len=max_len)
+        eng = ServeEngine(cfg, params, registry.get_model_api(cfg), rules=rules, max_len=max_len)
     log: list = []
     forward_log(eng, log)
     secs = [0.0]
@@ -3362,7 +3402,7 @@ def mesh_ssm_four_ranks(mesh) -> dict:
     out = {}
     for arch, *_ in MESH_SSM_CUTS:
         cfg, run, batch = mesh_ssm_model(arch)
-        res = {"train": mesh_ssm_train(mesh, cfg, run, batch)}
+        res = {"train": mesh_steps(mesh, cfg, run, batch)}
         gc.collect()
         torch.cuda.empty_cache()
         params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
@@ -3378,11 +3418,11 @@ def mesh_ssm_four_ranks(mesh) -> dict:
             res["prefill"] = {"ms": (time.perf_counter() - t0) * 1e3, "rules": (rules.seq, rules.heads),
                               "logits": logits.float().cpu() if torch.distributed.get_rank() == 0 else None}
         reqs = synthetic_requests(4, cfg.vocab_size, MESH_SSM_NEW)
-        res["b"] = mesh_ssm_serve(mesh, cfg, params, reqs, SERVE_MAX_LEN, clocked=True)
+        res["b"] = mesh_generate(mesh, cfg, params, reqs, SERVE_MAX_LEN, clocked=True)
         params = res["b"].pop("params")  # laid out once: (c)'s engine finds it so
         if arch == HYBRID_MESH_ARCH:
-            res["c"] = mesh_ssm_serve(mesh, cfg, params, mesh_serve_kv_request(cfg), MESH_SERVE_KV_MAX_LEN,
-                                      clocked=False)
+            res["c"] = mesh_generate(mesh, cfg, params, mesh_serve_kv_request(cfg), MESH_SERVE_KV_MAX_LEN,
+                                     clocked=False)
             res["c"].pop("params")
         del params
         gc.collect()
@@ -3538,6 +3578,377 @@ def mesh_ssm_families() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------- phase 18
+ENCDEC_MESH_ARCH, VLM_MESH_ARCH = FAMILY_ARCHS[2], FAMILY_ARCHS[3]
+MESH_ENCDEC_ONE_STEPS = 3
+# (a)'s training: (arch, layers (None: all), batch, sequence); qwen2-vl's 2 of 28 layers carry 1.56 B
+# counted weights (two untied 545 M tables), 25 GiB of float32 state before activations
+MESH_ENCDEC_ONE_TRAIN = ((ENCDEC_MESH_ARCH, None, 8, 448), (VLM_MESH_ARCH, 2, 2, 2048))
+# (b): (arch, layers (None: all), batch, sequence, steps on one batch) on (1, 2, 2) over 4 ranks sharing
+# the card; qwen2-vl's rows hold 1,024 vision tokens each
+MESH_ENCDEC_CUTS = ((ENCDEC_MESH_ARCH, None, 4, 448, 2), (VLM_MESH_ARCH, 2, 4, 1280, 1))
+MESH_ENCDEC_NEW = 8  # whisper-tiny's new tokens a request in (b)
+MESH_VLM_DECODE = 2  # qwen2-vl's decode steps after its vision prefill in (b)
+MESH_ENCDEC_KV_PROMPT, MESH_ENCDEC_KV_MAX_LEN, MESH_ENCDEC_KV_STEPS = 448, 512, 4  # (c): batch 1, kv_seq
+# (b)'s and (c)'s limits against the same models unsharded on the card, as phase 17's: training, relative,
+# step 1's loss and grad_norm and (whisper-tiny) the loss step 1's update took off its batch; serving, each
+# forward's largest logit gap relative to the unsharded logits' largest magnitude.  Each lies between the
+# sound runs' readings and the planted faults' that it catches (tools/mesh_fault_readings.py --path encdec,
+# PERF.md; H100 80GB HBM3, 700 W).  Training, sound whisper-tiny / qwen2-vl-7b: loss 2.2e-5 / 4.0e-6,
+# grad_norm 2.6e-3 / 2.0e-4, drop 6.8e-4 (whisper-tiny); cross K/V from another rank's heads 5.4e-2, 6.0e-2,
+# 0.11; the vision splice of the first rows grad_norm 0.18 (the first rows' M-RoPE positions, 1.5e-5 and
+# 5.4e-4, stay under: the prefill catches them).  Serving, sound prefill / worst decode / decode median at
+# most 1.15e-2, 1.12e-2, 1.06e-2 over (b) and (c); the M-RoPE positions of the first rows 0.27, 0.27, 0.25;
+# (c)'s cross slice without lse_combine -, 0.10, 0.10; cross K/V and the splice 0.85-1.08
+MESH_ENCDEC_GAP = {"loss": 1e-3, "grad_norm": 1.5e-2, "drop": 1e-2}
+MESH_ENCDEC_SERVE_GAP = {"prefill": 0.05, "decode": 0.03, "decode_median": 0.03}
+
+
+def vision_rows(cfg, batch: dict) -> dict:
+    """A vlm ``batch`` with its (3, B, S) M-RoPE positions made row by row:
+    row r's image (the first ``vision_tokens`` positions) at temporal id r
+    on a patch grid ``VLM_GRID`` wide for even rows and half as wide for
+    odd ones, the text after it at its index on all three axes; so a rank
+    that rotated by another rank's rows would show.  Another family's
+    batch as it is."""
+    if cfg.family != "vlm":
+        return batch
+    thw = batch["positions_thw"].clone()
+    V = cfg.vision_tokens
+    idx = torch.arange(V, device=thw.device, dtype=thw.dtype)
+    for r in range(thw.shape[1]):
+        w = VLM_GRID >> (r % 2)
+        thw[0, r, :V], thw[1, r, :V], thw[2, r, :V] = r, idx // w, idx % w
+    return dict(batch, positions_thw=thw)
+
+
+def prefill_bits(cfg, api, params, mesh) -> dict:
+    """Phase 10 (c)'s float32 prefill (2 rows of ``S`` - 2 tokens with the
+    family's inputs, ``family_inputs``; no TF32) over ``mesh`` and
+    unsharded: whether the last logits and every cache leaf agree in bits."""
+    f32 = cfg.replace(dtype=torch.float32)
+    B, S = 2, {"encdec": 24, "vlm": VLM_CHECK_LEN}[cfg.family]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))).to(DEV)
+    batch = {"tokens": toks[:, : S - 2], **family_inputs(cfg)(B, S)}
+    if "positions_thw" in batch:
+        batch["positions_thw"] = batch["positions_thw"][:, :, : S - 2]
+    rules = sharding.rules_for(f32, ShapeConfig("prefill", S - 2, B, "prefill"), mesh)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want, wcache = api.prefill(params, batch, f32, NO_SHARD, api.init_cache(f32, B, S + 4, device=DEV))
+            with set_mesh(mesh):
+                got, gcache = api.prefill(params, batch, f32, rules, api.init_cache(f32, B, S + 4, device=DEV))
+            leaves = [(whole(g), w) for g, w in zip(tree_leaves(gcache), tree_leaves(wcache))]
+            same_cache = all(torch.equal(bits(g), bits(w)) for g, w in leaves)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"S": S - 2, "logits": torch.equal(bits(got), bits(want)), "cache": same_cache,
+            "gap": float((got - want).abs().max()), "extras": sorted(k for k in batch if k != "tokens")}
+
+
+def mesh_encdec_world_one(mesh) -> dict:
+    """Phase 18 (a), the one rank of an NCCL group on (1, 1, 1): whisper-tiny
+    and qwen2-vl-7b at full width, all layers, float32 weights from phase
+    10's seed, each served through ``ServeEngine(rules=...)`` for phase
+    10's first batch, then phase 10 (c)'s float32 prefill over the mesh
+    against the unsharded one; then 3 training steps of each through
+    ``jit_train_step(mesh=...)`` (whisper-tiny all layers, 8 x 448;
+    qwen2-vl-7b 2 of 28 layers, 2 x 2,048 with 1,024 vision tokens a row),
+    first the unsharded step on the same state and batch, both first steps
+    under deterministic algorithms."""
+    out = {}
+    reset_launches()
+    for arch in (ENCDEC_MESH_ARCH, VLM_MESH_ARCH):
+        cfg = registry.get_config(arch)
+        api = registry.get_model_api(cfg)
+        reqs = synthetic_requests(SERVE_BATCHES[0], cfg.vocab_size, SERVE_NEW_TOKENS)
+        params = api.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+        rules = sharding.rules_for(cfg, ShapeConfig("serve", SERVE_MAX_LEN, len(reqs), "decode"), mesh)
+        with set_mesh(mesh):
+            eng = ServeEngine(cfg, params, api, rules=rules, max_len=SERVE_MAX_LEN)
+        log: list = []
+        forward_log(eng, log)
+        before = launch_counts()
+        toks = eng.generate(reqs)
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        del eng
+        out[arch] = {"serve": {"tokens": toks, "log": log, "launches": launches, "rules": str(rules),
+                               "prefill_bits": prefill_bits(cfg, api, params, mesh)}}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, n_layers, B, S in MESH_ENCDEC_ONE_TRAIN:
+        cfg = registry.get_config(arch)
+        cfg = cfg.replace(num_layers=n_layers) if n_layers else cfg
+        api = registry.get_model_api(cfg)
+        run = mesh_run(cfg, B, S)
+        data = SyntheticLMData(cfg, B, S, seed=0, device=DEV)
+        batches = [vision_rows(cfg, data.next_batch()) for _ in range(MESH_ENCDEC_ONE_STEPS)]
+        torch.use_deterministic_algorithms(True)
+        (plain,) = unsharded_steps(cfg, run, batches[:1])
+        state = init_train_state(torch.Generator(device=DEV).manual_seed(0), cfg, run, api)
+        rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, state["params"])
+        step = jit_train_step(make_train_step(cfg, run, api, rules), mesh, sspecs, bspecs)
+        torch.cuda.reset_peak_memory_stats()
+        metrics, walls = [], []
+        for i, batch in enumerate(batches):
+            if i == 1:
+                torch.use_deterministic_algorithms(False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first_bits = (int(bits(m["loss"])), int(bits(m["grad_norm"])))
+        torch.use_deterministic_algorithms(False)
+        out[arch]["train"] = {"plain": plain, "metrics": metrics, "first_bits": first_bits, "walls": walls,
+                              "peak": torch.cuda.max_memory_allocated(), "layers": cfg.num_layers,
+                              "counted": lm.counted_params(state["params"]), "shape": (B, S)}
+        del state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = dict(launch_counts())
+    return out
+
+
+def mesh_encdec_model(arch: str):
+    """(b)'s cut of ``arch``: (config, run, its one batch, steps)."""
+    _, n_layers, batch, seq, steps = next(c for c in MESH_ENCDEC_CUTS if c[0] == arch)
+    cfg = registry.get_config(arch)
+    cfg = cfg.replace(num_layers=n_layers) if n_layers else cfg
+    data = SyntheticLMData(cfg, batch, seq, seed=0, device=DEV)
+    return cfg, mesh_run(cfg, batch, seq), vision_rows(cfg, data.next_batch()), steps
+
+
+def mesh_vision_serve(mesh, cfg, params, batch: dict) -> dict:
+    """A prefill of ``batch``'s rows with their vision inputs under the
+    prefill rules, then ``MESH_VLM_DECODE`` greedy decode steps under the
+    decode rules; each forward logged as ``forward_log`` logs it."""
+    api = registry.get_model_api(cfg)
+    B, S = batch["tokens"].shape
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    log: list = []
+
+    def logged(kind, fn, tokens):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = fn()
+        torch.cuda.synchronize()
+        log.append({"kind": kind, "ms": (time.perf_counter() - t0) * 1e3, "k1": 0,
+                    "peak": torch.cuda.max_memory_allocated(), "tokens": tokens.cpu(), "logits": logits.float().cpu()})
+        return logits, cache
+
+    reset_launches()
+    with set_mesh(mesh):
+        rules = sharding.rules_for(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
+        cache = api.init_cache(cfg, B, S + MESH_VLM_DECODE, device=DEV)
+        logits, cache = logged("prefill", lambda: api.prefill(params, prompt, cfg, rules, cache), batch["tokens"])
+        rules = sharding.rules_for(cfg, ShapeConfig("decode", S, B, "decode"), mesh)
+        for j in range(MESH_VLM_DECODE):
+            tok = torch.argmax(logits, -1)[:, None]
+            logits, cache = logged("decode", lambda: api.decode_step(params, tok, cfg, rules, cache, S + j), tok)
+    if torch.distributed.get_rank():
+        for f in log:
+            f.pop("logits")
+    return {"tokens": [f["tokens"].tolist() for f in log[1:]], "log": log, "launches": dict(launch_counts()),
+            "rules": (rules.batch, rules.kv_seq)}
+
+
+def mesh_encdec_four_ranks(mesh) -> dict:
+    """Phase 18 (b) and (c) on one of 4 ranks sharing the card over gloo,
+    mesh (1, 2, 2): whisper-tiny at full depth trained 2 steps on one batch
+    of 4 x 448 tokens, serving 4 requests of the launcher's mix, then (c)
+    one 448-token request at ``max_len`` 512 (``kv_seq="data"``: the self
+    and the cross caches split along their sequence, 750 frames a rank);
+    qwen2-vl-7b (2 of 28 layers) one step on 4 x 1,280 tokens (1,024
+    vision tokens a row), then a prefill of that batch with its vision
+    inputs and ``MESH_VLM_DECODE`` decode steps."""
+    out = {}
+    for arch, *_ in MESH_ENCDEC_CUTS:
+        cfg, run, batch, steps = mesh_encdec_model(arch)
+        res = {"train": mesh_steps(mesh, cfg, run, batch, steps)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = registry.get_model_api(cfg).init(cfg, torch.Generator(device=DEV).manual_seed(0))
+        if arch == ENCDEC_MESH_ARCH:
+            reqs = synthetic_requests(4, cfg.vocab_size, MESH_ENCDEC_NEW)
+            res["b"] = mesh_generate(mesh, cfg, params, reqs, SERVE_MAX_LEN, clocked=True)
+            params = res["b"].pop("params")  # laid out once: (c)'s engine finds it so
+            kv = mesh_serve_kv_request(cfg, MESH_ENCDEC_KV_PROMPT, MESH_ENCDEC_KV_STEPS)
+            res["c"] = mesh_generate(mesh, cfg, params, kv, MESH_ENCDEC_KV_MAX_LEN, clocked=False)
+            res["c"].pop("params")
+        else:
+            B, S = batch["tokens"].shape
+            rules = sharding.rules_for(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
+            params = lay_out(params, sharding.param_layout(cfg, rules, mesh, params), mesh)  # each rank its shard
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["b"] = mesh_vision_serve(mesh, cfg, params, batch)
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
+
+
+def mesh_encdec_readings(ranks_out: list) -> dict:
+    """The ranks' runs held to the same models unsharded on the card: per
+    arch the training gaps (``mesh_four_gaps``) and each serving run's
+    logit gaps against the unsharded model fed its inputs and tokens."""
+    readings = {}
+    for arch, *_ in MESH_ENCDEC_CUTS:
+        cfg, run, batch, steps = mesh_encdec_model(arch)
+        out = [r[arch] for r in ranks_out]
+        ref = unsharded_steps(cfg, run, [batch] * steps)
+        got = {"train": mesh_four_gaps(out[0]["train"]["metrics"], ref), "ref_train": ref}
+        params = registry.get_model_api(cfg).init(cfg, torch.Generator(device=DEV).manual_seed(0))
+        if arch == ENCDEC_MESH_ARCH:
+            for case, max_len in (("b", SERVE_MAX_LEN), ("c", MESH_ENCDEC_KV_MAX_LEN)):
+                runs = [r[case] for r in out]
+                tf = teacher_forced(cfg, params, runs[0]["log"], max_len, batch_groups(runs[0]["rules"][0]))
+                got[case] = logit_gaps(runs[0]["log"], tf)
+        else:
+            inputs = {k: batch[k] for k in ("vision_embeds", "positions_thw")}
+            B, S = batch["tokens"].shape
+            tf = teacher_forced(cfg, params, out[0]["b"]["log"], S + MESH_VLM_DECODE, inputs=inputs)
+            got["b"] = logit_gaps(out[0]["b"]["log"], tf)
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        readings[arch] = got
+    return readings
+
+
+def mesh_encdec_families() -> dict:
+    """Phase 18: the encdec and vlm families over a mesh, (a) world size 1
+    over NCCL, (b) and (c) 4 ranks sharing the card over gloo.  Returns
+    the launches of all three, summed over the ranks."""
+    t0 = time.perf_counter()
+    card = smi()
+    total = collections.Counter()
+    full = {a: registry.get_config(a) for a in (ENCDEC_MESH_ARCH, VLM_MESH_ARCH)}
+    cuts = ", ".join(f"{a} {'all ' + str(full[a].num_layers) if n is None else f'depth {full[a].num_layers} -> {n}'} "
+                     f"layers, {k} step(s) of {b} x {s}" for a, n, b, s, k in MESH_ENCDEC_CUTS)
+    trains = ", ".join(f"{a} ({'all' if n is None else f'depth {full[a].num_layers} -> {n}'} layers, {b} x {s})"
+                       for a, n, b, s in MESH_ENCDEC_ONE_TRAIN)
+    print(f"phase 18 (the encdec and vlm families over a mesh, {card}): at full width; (a) {ENCDEC_MESH_ARCH} and "
+          f"{VLM_MESH_ARCH} all layers serving phase 10's first batch, phase 10 (c)'s prefill over the mesh, "
+          f"{MESH_ENCDEC_ONE_STEPS} steps of {trains}; reduced: (b) {cuts}; {MESH_ENCDEC_NEW} new "
+          f"tokens a request ({ENCDEC_MESH_ARCH}), a vision prefill and {MESH_VLM_DECODE} decode steps "
+          f"({VLM_MESH_ARCH}); (c) one {MESH_ENCDEC_KV_PROMPT}-token prompt, max_len {MESH_ENCDEC_KV_MAX_LEN}, "
+          f"{MESH_ENCDEC_KV_STEPS} decode steps; widths as published")
+    missing = [a for a in (ENCDEC_MESH_ARCH, VLM_MESH_ARCH) if not PHASE10_KEPT.get(a)]
+    if missing:
+        fail(f"phase 18 (a): phase 10 kept no tokens for {missing}")
+    base = torch.cuda.memory_allocated()
+    env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # the rank's deterministic first steps
+    try:
+        (one,) = rt_ranks.run_ranks(mesh_encdec_world_one, (1, 1, 1), MESH_NAMES, backend="nccl", device="cuda")
+    finally:
+        if env_before is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
+    allocated_back(base, "phase 18 (a)'s rank", phase=18)
+    for arch in (ENCDEC_MESH_ARCH, VLM_MESH_ARCH):
+        serve, kept = one[arch]["serve"], PHASE10_KEPT[arch]
+        log, pb = serve["log"], serve["prefill_bits"]
+        gap = max(float((f["logits"] - w).abs().max()) for f, w in zip(log, kept["logits"]))
+        decode_ms = [f["ms"] for f in log[1:]]
+        print(f"  (a) world size 1 over nccl, mesh (1, 1, 1), {serve['rules']}: {arch} tokens equal phase 10's "
+              f"{serve['tokens'] == kept['tokens']}; largest logit gap to phase 10 {gap!r} over {len(log)} forwards; "
+              f"K1 {sum(f['k1'] for f in log)}, K5 {serve['launches'].get('sort_pairs_tile_tagged', 0)}; prefill "
+              f"{log[0]['ms']:.3f} ms, decode {statistics.median(decode_ms):.3f} ms a step (median of {len(decode_ms)}; "
+              f"min {min(decode_ms):.3f}, max {max(decode_ms):.3f}) synchronised; max allocated "
+              f"{max(f['peak'] for f in log) / 2**30:.2f} GiB; phase 10 (c)'s float32 prefill of 2 x {pb['S']} tokens "
+              f"with {pb['extras']} over the mesh against the unsharded one: logits equal in bits {pb['logits']}, "
+              f"every cache leaf {pb['cache']} (largest gap {pb['gap']!r})")
+        if serve["tokens"] != kept["tokens"] or gap != 0.0:
+            fail(f"phase 18 (a) {arch}: tokens or logits differ from phase 10's (largest gap {gap})")
+        if any(f["k1"] for f in log) or serve["launches"].get("sort_pairs_tile_tagged") != 1:
+            fail(f"phase 18 (a) {arch}: K1 a forward {[f['k1'] for f in log]} (not 0), launches {serve['launches']}")
+        if not (pb["logits"] and pb["cache"]):
+            fail(f"phase 18 (a) {arch}: the prefill over the mesh differs in bits from the unsharded one: {pb}")
+    for arch, *_ in MESH_ENCDEC_ONE_TRAIN:
+        train = one[arch]["train"]
+        ms, plain = train["metrics"], train["plain"]
+        losses = [m["loss"] for m in ms]
+        print(f"  (a) {arch} training, {train['layers']} layers ({train['counted']:,} counted weights), "
+              f"{train['shape'][0]} x {train['shape'][1]}: losses {[round(x, 4) for x in losses]}, grad_norm "
+              f"{[round(m['grad_norm'], 4) for m in ms]}; step ms (synchronised) {[round(w, 1) for w in train['walls']]} "
+              f"(steps 2-3 without deterministic algorithms), max allocated {train['peak'] / 2**30:.2f} GiB; step 1 "
+              f"against the unsharded step on the same state and batch: loss {ms[0]['loss']!r} vs {plain['loss']!r}, "
+              f"grad_norm {ms[0]['grad_norm']!r} vs {plain['grad_norm']!r}; bits equal "
+              f"{train['first_bits'] == tuple(plain['bits'])}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"phase 18 (a) {arch}: a loss is not finite: {losses}")
+        if train["first_bits"] != tuple(plain["bits"]):
+            fail(f"phase 18 (a) {arch}: step 1's loss or grad_norm differs in bits from the unsharded step's")
+        if train["peak"] > TRAIN_MEMORY_LIMIT:
+            fail(f"phase 18 (a) {arch}: max allocated {train['peak'] / 2**30:.2f} GiB past 75 GiB")
+    total.update(one["launches"])
+
+    t_ranks = time.perf_counter()
+    ranks_out = rt_ranks.run_ranks(mesh_encdec_four_ranks, MESH_FOUR, MESH_NAMES, backend="gloo", device="cuda")
+    print(f"  (b), (c): the 4 ranks took {time.perf_counter() - t_ranks:.1f} s")
+    before = launch_counts()
+    readings = mesh_encdec_readings(ranks_out)
+    total.update({k: v - before[k] for k, v in launch_counts().items()})
+    for arch, n_layers, B, S, steps in MESH_ENCDEC_CUTS:
+        out = [r[arch] for r in ranks_out]
+        tr, gap = out[0]["train"], readings[arch]["train"]
+        coll = [r["train"]["coll_ms"] for r in out]
+        share = "not measured" if coll[0] is None else round(max(coll) / max(r["train"]["walls"][0] for r in out), 3)
+        print(f"  (b) {arch} on {MESH_FOUR}, rules (seq, heads) {tr['rules']}: {steps} step(s) of {B} x {S}: losses "
+              f"{[m['loss'] for m in tr['metrics']]!r}, grad_norm {[m['grad_norm'] for m in tr['metrics']]!r}; "
+              f"unsharded on the card: losses {[m['loss'] for m in readings[arch]['ref_train']]!r}; relative gaps "
+              f"{ {k: f'{v:.3e}' for k, v in gap.items()} } (limits {MESH_ENCDEC_GAP}); step ms (slowest rank): "
+              f"step 1 clocked {max(r['train']['walls'][0] for r in out):.1f}, {share} of it in DTensor's "
+              f"redistributions{'; step 2 ' + format(max(r['train']['walls'][1] for r in out), '.1f') if steps > 1 else ''}; "
+              f"max allocated by rank {[round(r['train']['peak'] / 2**30, 2) for r in out]} GiB")
+        if not all(math.isfinite(m["loss"]) for r in out for m in r["train"]["metrics"]):
+            fail(f"phase 18 (b) {arch}: a loss is not finite")
+        if any(r["train"]["metrics"] != tr["metrics"] for r in out):
+            fail(f"phase 18 (b) {arch}: the ranks report different metrics")
+        if not all(gap[k] <= MESH_ENCDEC_GAP[k] for k in gap):
+            fail(f"phase 18 (b) {arch}: the gaps {gap} to the unsharded steps pass the limits {MESH_ENCDEC_GAP}")
+        for case in ("b", "c"):
+            if case not in out[0]:
+                continue
+            runs = [r[case] for r in out]
+            g = readings[arch][case]
+            slow = [max(r["log"][i]["ms"] for r in runs) for i in range(len(runs[0]["log"]))]
+            share = ("" if runs[0].get("coll_ms") is None else
+                     f", {max(r['coll_ms'] for r in runs) / max(r['wall'] for r in runs):.3f} of the generate in "
+                     f"DTensor's redistributions (clocked, synchronised)")
+            what = "a vision prefill of the batch" if arch == VLM_MESH_ARCH else f"{len(runs[0]['tokens'])} requests"
+            print(f"  ({case}) {arch} serving, rules (batch, kv_seq) {runs[0]['rules']}: {what}; relative logit gaps to "
+                  f"the unsharded model fed the same inputs: prefill {g['prefill']:.3e}, decode steps "
+                  f"{[f'{v:.3e}' for v in g['steps'][1:]]}, median {g['decode_median']:.3e} (limits "
+                  f"{MESH_ENCDEC_SERVE_GAP}); slowest rank: prefill {slow[0]:.1f} ms, decode "
+                  f"{statistics.median(slow[1:]):.1f} ms a step{share}; max allocated by rank "
+                  f"{[round(max(f['peak'] for f in r['log']) / 2**30, 2) for r in runs]} GiB")
+            if arch == VLM_MESH_ARCH:  # no generate: no K5; the same gates otherwise
+                if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+                    fail(f"phase 18 ({case}) {arch}: the ranks emitted different tokens")
+                if any(r["launches"].get("bucket_count_rank", 0) for r in runs):
+                    fail(f"phase 18 ({case}) {arch}: K1 launched: {[r['launches'] for r in runs]}")
+                if not all(g[k] <= MESH_ENCDEC_SERVE_GAP[k] for k in MESH_ENCDEC_SERVE_GAP):
+                    fail(f"phase 18 ({case}) {arch}: the logit gaps {g} pass the limits {MESH_ENCDEC_SERVE_GAP}")
+            else:
+                mesh_four_serving_checks(f"{case}, {arch}", runs, g, 0, MESH_ENCDEC_SERVE_GAP, phase=18)
+            for r in runs:
+                total.update(r["launches"])
+    print(f"phase 18 (the encdec and vlm families over a mesh): {time.perf_counter() - t0:.1f} s; launches "
+          f"{dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     t_script = time.perf_counter()
     preflight()
@@ -3611,6 +4022,10 @@ def main() -> None:
     mesh_ssm_counts.update(mesh_ssm_families())
     if mesh_ssm_counts["sort_pairs_tile_tagged"] == 0:
         fail("sort_pairs_tile_tagged never launched on the ssm and hybrid families' mesh path")
+    mesh_encdec_counts = {name: 0 for name in KERNELS}
+    mesh_encdec_counts.update(mesh_encdec_families())
+    if mesh_encdec_counts["sort_pairs_tile_tagged"] == 0:
+        fail("sort_pairs_tile_tagged never launched on the encdec and vlm families' mesh path")
 
     launches = {
         **sort_counts,
@@ -3620,7 +4035,7 @@ def main() -> None:
     for name in launches:
         launches[name] += (serve_counts[name] + verify_counts[name] + perf_counts[name] + model_counts[name]
                            + family_counts[name] + train_counts[name] + dist_counts[name] + mesh_counts[name]
-                           + mesh_serve_counts[name] + mesh_ssm_counts[name])
+                           + mesh_serve_counts[name] + mesh_ssm_counts[name] + mesh_encdec_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
@@ -3628,7 +4043,7 @@ def main() -> None:
             c[name]
             for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, perf_counts,
                       model_counts, family_counts, train_counts, dist_counts, mesh_counts, mesh_serve_counts,
-                      mesh_ssm_counts)
+                      mesh_ssm_counts, mesh_encdec_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

@@ -176,19 +176,25 @@ def train_specs(cfg: ModelConfig, shape: ShapeConfig, run, mesh, params):
     sspecs = {"params": pspecs, "opt": opt, "step": Spec()}
     if run.grad_compression == "int8":
         sspecs["error_fb"] = pspecs
-    rows = {"tokens": (shape.global_batch, shape.seq_len), "labels": (shape.global_batch, shape.seq_len)}
-    return rules, sspecs, sanitize_specs(batch_specs(cfg, shape, rules), rows, mesh)
+    from repro_torch.configs.registry import input_specs
+
+    return rules, sspecs, sanitize_specs(batch_specs(cfg, shape, rules), input_specs(cfg, shape), mesh)
 
 
 # --------------------------------------------------------------- serve specs
-def serve_layout(cfg: ModelConfig, rules: AxisRules, mesh, params, tokens, cache):
-    """(parameter specs, token spec, cache specs) of a prefill or decode
+def serve_layout(cfg: ModelConfig, rules: AxisRules, mesh, params, batch: dict, cache):
+    """(parameter specs, batch specs, cache specs) of a prefill or decode
     call on ``mesh`` under ``rules``, each sanitized against its leaves'
     shapes: the reference's ``in_shardings`` for both, and the cache's
-    ``out_shardings`` (``dryrun.build_lowered``).  The leaves are tensors
-    (plain, DTensor or meta) or shape tuples."""
-    tspec = sanitize_specs(rules.spec("batch", None), tokens, mesh)
-    return param_layout(cfg, rules, mesh, params), tspec, sanitize_specs(cache_specs(cfg, rules, cache), cache, mesh)
+    ``out_shardings`` (``dryrun.build_lowered``).  Every leaf of the
+    call's ``batch`` gets ``batch_specs``' rows (the tokens, the encoder
+    frames, the vision embeddings and their (3, B, S) positions); a
+    decode's batch holds the tokens alone, so the vision inputs go into
+    prefill only, as the reference's ``kind != "decode"`` rule has it.
+    The leaves are tensors (plain, DTensor or meta) or shape tuples."""
+    specs = batch_specs(cfg, ShapeConfig("serve", 1, 1, "prefill"), rules)
+    bspecs = sanitize_specs({k: specs[k] for k in batch}, batch, mesh)
+    return param_layout(cfg, rules, mesh, params), bspecs, sanitize_specs(cache_specs(cfg, rules, cache), cache, mesh)
 
 
 def param_layout(cfg: ModelConfig, rules: AxisRules, mesh, params):

@@ -318,11 +318,13 @@ def _enter(x, pl, mesh):
     return _ReduceGrad.apply(x, before) if x.requires_grad else x
 
 
-def tp_region(body, x, weights, rules: AxisRules, mesh, extra=()):
-    """``body(x, *weights)`` for a column- then row-parallel block (the
-    MLP, attention, the shared experts): ``x`` as it lies, each weight
-    gathered over FSDP with its tensor-axis split kept (MLA's latent
-    projections have none).  The output is laid out as ``x`` and is a
+def tp_region(body, x, weights, rules: AxisRules, mesh, extra=(), inputs=()):
+    """``body(x, *weights, *inputs)`` for a column- then row-parallel block
+    (the MLP, attention, cross-attention, the shared experts): ``x`` as it
+    lies, each weight gathered over FSDP with its tensor-axis split kept
+    (MLA's latent projections have none), each of ``inputs`` (a
+    ``(tensor, Spec)`` pair: M-RoPE's positions, the encoder output) laid
+    out as its ``Spec``.  The output is laid out as ``x`` and is a
     partial sum over the tensor axis when any weight is split there;
     ``extra`` gives the ``Spec`` of each further output (K and V, or the
     latent, for prefill's cache), none a partial sum.
@@ -333,8 +335,10 @@ def tp_region(body, x, weights, rules: AxisRules, mesh, extra=()):
     parameter's once (a bf16 parameter in a float32 model)."""
     split = any(on_tensor_axis(w, rules, mesh) for w in weights)
     spec = axes_of(x, mesh)
-    return region(body, (x, *weights), (spec, *(tp_spec(w, rules, mesh) for w in weights)), (spec, *extra),
-                  partial=[(rules.tensor,) if split else (), *[()] * len(extra)], mesh=mesh)
+    args = (x, *weights, *(t for t, _ in inputs))
+    specs = (spec, *(tp_spec(w, rules, mesh) for w in weights), *(s for _, s in inputs))
+    return region(body, args, specs, (spec, *extra), partial=[(rules.tensor,) if split else (), *[()] * len(extra)],
+                  mesh=mesh)
 
 
 def replicated(x, mesh=None):
@@ -490,7 +494,6 @@ def scatter_sum_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 UNPORTED_ITEMS = {
-    "1c": "the encdec and vlm families over a mesh",
     "1d": "attention under sequence parallelism and the dense MoE oracle over a mesh",
 }
 

@@ -128,19 +128,22 @@ def _qkv(p, x, cfg, *, positions, theta, positions_thw=None):
 
 
 def apply_attn_block(
-    p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None,
+    p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None, causal=True,
 ):
     """Attention sublayer.  Train/prefill when ``cache_kv`` is None (returns
     the full-sequence (k, v) for cache building); else one decode step that
     writes this step's keys into the cache tensors in place and returns them.
+    ``causal=False`` is the encoder's self-attention (whisper).
 
     Under a mesh, one region: each rank attends over its batch rows and
     its heads, and the output projection's partial sums over the tensor
-    axis are reduced by ``shard``.  Without autograd recording (prefill)
-    the region also returns this layer's K and V, laid out as the
-    output's rows and the ``wk`` heads; while it records (training), the
-    output alone.  A decode step takes the cache entry (DTensors laid out
-    by ``cache_specs``) into the region and writes its local shards in
+    axis are reduced by ``shard``.  M-RoPE's ``positions_thw`` (3, B, S)
+    enters the region laid out by the rows of ``x``, so each rank rotates
+    its rows by their own (t, h, w) ids.  Without autograd recording
+    (prefill) the region also returns this layer's K and V, laid out as
+    the output's rows and the ``wk`` heads; while it records (training),
+    the output alone.  A decode step takes the cache entry (DTensors laid
+    out by ``cache_specs``) into the region and writes its local shards in
     place (``_attn_decode_on_mesh``)."""
     mesh = mesh_for(rules)
     if mesh is not None:
@@ -152,20 +155,22 @@ def apply_attn_block(
                                        cache_kv=cache_kv, pos=pos)
             return shard(out, rules, "batch", "seq", None), cache_kv
         with_kv = not torch.is_grad_enabled()
+        xs = axes_of(x, mesh)
+        thw = () if positions_thw is None else ((positions_thw, Spec(None, xs[0], None)),)
 
-        def body(x, *w):
-            out, kv = _attn_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions=positions, window=window,
-                                 theta=theta, positions_thw=positions_thw)
+        def body(x, *rest):
+            w, thw_local = dict(zip(keys, rest[: len(keys)])), rest[len(keys) :]
+            out, kv = _attn_core(w, x, cfg, local_rules(rules), positions=positions, window=window, theta=theta,
+                                 positions_thw=thw_local[0] if thw_local else None, causal=causal)
             return (out, *kv) if with_kv else out
 
         if not with_kv:
-            return shard(tp_region(body, x, ws, rules, mesh), rules, "batch", "seq", None), None
-        xs = axes_of(x, mesh)
+            return shard(tp_region(body, x, ws, rules, mesh, inputs=thw), rules, "batch", "seq", None), None
         kv = Spec(xs[0], xs[1], rules.tensor if on_tensor_axis(p["wk"], rules, mesh) else None, None)
-        out, k, v = tp_region(body, x, ws, rules, mesh, extra=(kv, kv))
+        out, k, v = tp_region(body, x, ws, rules, mesh, extra=(kv, kv), inputs=thw)
         return shard(out, rules, "batch", "seq", None), (k, v)
     out, new_kv = _attn_core(p, x, cfg, rules, positions=positions, window=window, theta=theta,
-                             positions_thw=positions_thw, cache_kv=cache_kv, pos=pos)
+                             positions_thw=positions_thw, cache_kv=cache_kv, pos=pos, causal=causal)
     return shard(out, rules, "batch", "seq", None), new_kv
 
 
@@ -177,9 +182,10 @@ def _attn_decode_on_mesh(keys, ws, x, cfg, rules, mesh, *, window, theta, cache_
     slot for a ring cache) writes this step's keys, each rank attends
     over its own slice (``attention_with_lse``, its positions explicit)
     and ``lse_combine`` joins the slices; the cache is never gathered.
-    The weights keep their tensor-axis split where the cache keeps the
-    heads split over that axis; else they are taken whole, and every rank
-    of a tensor group computes every head."""
+    M-RoPE's positions (``pos`` on all three axes) are made for the rank's
+    own rows inside the region.  The weights keep their tensor-axis split
+    where the cache keeps the heads split over that axis; else they are
+    taken whole, and every rank of a tensor group computes every head."""
     ck = cache_kv[0]
     axes, lo, total = seq_shard(ck)
     split = axes_of(ck, mesh)[2] == rules.tensor
@@ -189,10 +195,11 @@ def _attn_decode_on_mesh(keys, ws, x, cfg, rules, mesh, *, window, theta, cache_
 
     def body(x, *rest):
         w, cache = dict(zip(keys, rest[: len(keys)])), rest[len(keys) :]
+        thw = _decode_positions_thw(cfg, x.shape[0], pos, x.device)
         if not axes:
             return _attn_core(w, x, cfg, local_rules(rules), positions=positions, window=window, theta=theta,
-                              cache_kv=cache, pos=pos)[0]
-        q, k, v = _qkv(w, x, cfg, positions=positions, theta=theta)
+                              positions_thw=thw, cache_kv=cache, pos=pos)[0]
+        q, k, v = _qkv(w, x, cfg, positions=positions, theta=theta, positions_thw=thw)
         ck, cv = cache[:2]
         if len(cache) == 3:  # a ring: this step's slot, the keys' positions in kpos (replicated)
             kpos = cache[2]
@@ -213,12 +220,22 @@ def _attn_decode_on_mesh(keys, ws, x, cfg, rules, mesh, *, window, theta, cache_
     return region(body, (x, *ws, *cache_kv), (xs, *specs, *cspecs), (xs,), partial=partial, mesh=mesh)
 
 
-def _attn_core(p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None):
+def _decode_positions_thw(cfg, rows: int, pos: int, device) -> "torch.Tensor | None":
+    """A decode step's M-RoPE positions for ``rows`` sequences: ``pos`` on
+    all three axes (3, rows, 1), as the reference broadcasts it; ``None``
+    without M-RoPE."""
+    if not cfg.mrope_sections:
+        return None
+    return torch.full((3, rows, 1), pos, dtype=torch.int32, device=device)
+
+
+def _attn_core(p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None,
+               causal=True):
     """``apply_attn_block`` up to its output's sharding constraint."""
     q, k, v = _qkv(p, x, cfg, positions=positions, theta=theta, positions_thw=positions_thw)
     if cache_kv is None:
         out = attention(
-            q, gather_seq(k, rules), gather_seq(v, rules), causal=True, window=window, chunk=cfg.attn_chunk,
+            q, gather_seq(k, rules), gather_seq(v, rules), causal=causal, window=window, chunk=cfg.attn_chunk,
             matmul_bf16=cfg.attn_matmul_bf16,
         )
         new_kv = (k, v)
@@ -414,15 +431,27 @@ def _layers(params, cfg):
 
 
 def _embed_in(params, batch, cfg, rules):
+    """The token embeddings, the vision embeddings (vlm) written over the
+    first positions of each row.  Under a mesh the splice is one region on
+    each rank's rows, the vision embeddings laid out by those rows."""
     x = L.embed_tokens(params["embedding"], batch["tokens"], cfg, rules)
     if cfg.embed_scale:
         # the reference's scale rounded to the compute dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
     ve = batch.get("vision_embeds")
     if ve is not None and cfg.vision_tokens:
-        # the reference's dynamic_update_slice at position 0
-        x = torch.cat([ve.to(x.dtype), x[:, ve.shape[1] :]], dim=1)
+        mesh = mesh_for(rules)
+        if mesh is None:
+            return _splice(x, ve)
+        xs = axes_of(x, mesh)
+        return region(_splice, (x, ve), (xs, Spec(xs[0], None, None)), (xs,), mesh=mesh)
     return x
+
+
+def _splice(x, ve):
+    """``ve`` written over the first positions of ``x``: the reference's
+    ``dynamic_update_slice`` at position 0."""
+    return torch.cat([ve.to(x.dtype), x[:, ve.shape[1] :]], dim=1)
 
 
 def _logits(params, x, cfg, rules):
@@ -437,16 +466,10 @@ def _store(dst: dict, src: dict) -> None:
 
 
 # ==================================================================== forward
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")  # the families the port trains and serves over a mesh
-
-
 def check_mesh(cfg, rules: AxisRules) -> None:
-    """Raise for what the port does not run over a mesh yet: the other
-    families, vision inputs, attention under sequence parallelism (the
-    ssm family, attention-free, takes it) and the dense MoE oracle, each
-    naming its ROADMAP.md item."""
-    if cfg.family not in MESH_FAMILIES or cfg.vision_tokens:
-        unported_on_mesh(f"the {cfg.family} family", rules, "1c")
+    """Raise for what the port does not run over a mesh yet: attention
+    under sequence parallelism (the ssm family, attention-free, takes it)
+    and the dense MoE oracle, each naming its ROADMAP.md item."""
     if rules.seq and cfg.family != "ssm":
         unported_on_mesh("attention under sequence parallelism (rules.seq)", rules, "1d")
     if cfg.is_moe and cfg.moe.dispatch == "dense":
@@ -466,9 +489,9 @@ def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
     """Training forward: returns (logits (B,S,V), aux_loss).
 
     Each layer's body runs under ``remat``; the hybrid family's shared
-    block stays outside it, as in the reference.  Under a mesh the dense,
-    moe, ssm and hybrid families run on DTensors (``common.set_mesh``);
-    the others raise."""
+    block stays outside it, as in the reference.  Under a mesh every
+    family runs on DTensors (``common.set_mesh``); what ``check_mesh``
+    names raises."""
     check_family(cfg)
     check_mesh(cfg, rules)
     tokens = batch["tokens"]
@@ -608,15 +631,14 @@ def _prefill(params, batch, cfg, rules, cache, mesh):
 
 
 def _serve_inputs(params, batch, cache, cfg, rules, mesh):
-    """The parameters, the tokens and the cache laid out on ``mesh`` as
-    the reference's jitted prefill and decode take them
-    (``launch.sharding.serve_layout``: ``param_specs``, the batch rows,
-    ``cache_specs``); what already lies so is not moved."""
+    """The parameters, every leaf of the batch and the cache laid out on
+    ``mesh`` as the reference's jitted prefill and decode take them
+    (``launch.sharding.serve_layout``: ``param_specs``, ``batch_specs``'
+    rows, ``cache_specs``); what already lies so is not moved."""
     from repro_torch.launch.sharding import serve_layout
 
-    pspecs, tspec, cspecs = serve_layout(cfg, rules, mesh, params, batch["tokens"], cache)
-    batch = dict(batch, tokens=lay_out(batch["tokens"], tspec, mesh))
-    return lay_out(params, pspecs, mesh), batch, lay_out(cache, cspecs, mesh)
+    pspecs, bspecs, cspecs = serve_layout(cfg, rules, mesh, params, batch, cache)
+    return lay_out(params, pspecs, mesh), lay_out(batch, bspecs, mesh), lay_out(cache, cspecs, mesh)
 
 
 def _write_prompt_on_mesh(entry, kv, cfg, mesh) -> None:
@@ -659,9 +681,8 @@ def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict,
 def _decode_step(params, tokens, cfg, rules, cache, pos, mesh):
     x = x0 = _embed_in(params, {"tokens": tokens}, cfg, rules)
     positions = torch.tensor([pos], device=tokens.device)
-    positions_thw = None
-    if cfg.mrope_sections:
-        positions_thw = torch.full((3, tokens.shape[0], 1), pos, dtype=torch.int32, device=tokens.device)
+    # on the mesh each rank makes its own rows' positions inside the attention region
+    positions_thw = None if mesh is not None else _decode_positions_thw(cfg, tokens.shape[0], pos, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device) if mesh is None else mesh_zeros(mesh)
     cache = tree_map(clone, cache)
     for i, (blk, w, th) in enumerate(_layers(params, cfg)):

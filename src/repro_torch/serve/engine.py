@@ -13,12 +13,14 @@ equal ones).
 ``torch.no_grad()``: DTensor's view ops raise on inference tensors); the model's
 ``prefill`` and ``decode_step`` launch the count/rank kernel K1 once an
 MoE layer.  An ``encdec`` model is prefilled against zero encoder frames
-(the stub frontend's), as in the reference.
+(the stub frontend's), as in the reference; a ``vlm`` model serves text
+alone.
 
 Over a mesh (``rules`` enabled, the engine made under ``common.set_mesh``
 on every rank of a ``DeviceMesh``), the engine lays the parameters out
 once by ``param_specs`` and each new cache by ``cache_specs``
-(``launch.sharding.serve_layout``), and every rank runs ``generate`` on
+(``launch.sharding.serve_layout``; prefill lays out the tokens and the
+zero encoder frames by the batch rows), and every rank runs ``generate`` on
 its own card (SPMD): the same batch order (K5 on each rank), the
 vocab-gathered logits, so the same tokens on every rank.
 """

@@ -105,8 +105,8 @@ SERVE = {
 ENGINE = ("zamba2-2.7b", 8, 4, 64)  # arch, requests, new tokens, max_len
 FAULT_CASE = "mamba2"
 FAULTS = ("norm_own_channels", "bc_contiguous", "conv_other_channels", "sp_local_slice")
-# refusals that stay: attention under SP (the hybrid family under a hand-made seq rule), and the encdec family
-STILL_REFUSED = {"hybrid_rules_seq": ("zamba2-2.7b", "1d"), "encdec": ("whisper-tiny", "1c")}
+# refusals that stay: attention under SP (the hybrid and encdec families under a hand-made seq rule)
+STILL_REFUSED = {"hybrid_rules_seq": ("zamba2-2.7b", "1d"), "encdec": ("whisper-tiny", "1d")}
 
 REFERENCE = r"""
 import os, sys, pickle, time
@@ -284,7 +284,7 @@ def _serve_case(name, inp, mesh, res_heads):
     else:
         cache = lm.init_cache(cfg, B, max_len, device="cpu")
         rules = SH.rules_for(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
-        pspecs, _, cspecs = SH.serve_layout(cfg, rules, mesh, params, (B, S), cache)
+        pspecs, _, cspecs = SH.serve_layout(cfg, rules, mesh, params, {"tokens": (B, S)}, cache)
         params = lay_out(params, pspecs, mesh)
         run["prefill_rules"] = (rules.seq, rules.heads)
         del res_heads[:]
@@ -295,7 +295,7 @@ def _serve_case(name, inp, mesh, res_heads):
         run["prefill_cache"] = _host(cache)
     run["logits"].append(logits.numpy())
     rules = SH.rules_for(cfg, ShapeConfig("decode", S, B, "decode"), mesh)
-    _, _, cspecs = SH.serve_layout(cfg, rules, mesh, params, (B, 1), cache)
+    _, _, cspecs = SH.serve_layout(cfg, rules, mesh, params, {"tokens": (B, 1)}, cache)
     run["rules"] = (rules.batch, rules.kv_seq, rules.seq)
     del res_heads[:]
     for j in range(inp["steps"]):
@@ -377,8 +377,7 @@ def _rank_ssm(mesh, plan, inputs_path):
         for what, (arch, _) in STILL_REFUSED.items():
             cfg = config(arch)
             rules = SH.rules_for(cfg, ShapeConfig("p", 4, 8, "prefill"), mesh)
-            if what == "hybrid_rules_seq":
-                rules = dataclasses.replace(rules, seq="model")
+            rules = dataclasses.replace(rules, seq="model")
             api = registry.get_model_api(cfg)
             res["refused"][what] = _raised(lambda: api.prefill({}, {"tokens": tokens}, cfg, rules, {}))
     return res

@@ -2,7 +2,7 @@
 in their ranks, on one CUDA card: the readings that their limits are set
 between.
 
-    python3 tools/mesh_fault_readings.py [--path train|serve|ssm] [--faults a,b,...]
+    python3 tools/mesh_fault_readings.py [--path train|serve|ssm|encdec] [--faults a,b,...]
 
 ``--path train`` (the default) is phase 15 (b): the unsharded reference
 runs once (the 2-layer DeepSeek-V2-Lite's two steps on one batch), then 4
@@ -12,7 +12,10 @@ batch and (c)'s long prompt, and each run's logits are held to the
 unsharded 2-layer model on the card fed that run's own tokens.  ``--path
 ssm`` is phase 17 (b) and (c): the ranks train, prefill and serve the
 cut mamba2-370m and Zamba2-2.7B, each run held to the same model
-unsharded on the card.  A fault is patched into every rank's modules
+unsharded on the card.  ``--path encdec`` is phase 18 (b) and (c): the
+ranks train and serve whisper-tiny (its batch-1 ``kv_seq`` request
+included) and train qwen2-vl-7b and prefill its vision batch, each run
+held to the same model unsharded on the card.  A fault is patched into every rank's modules
 before its model is built; the code on disk is not changed:
 
 * ``tensor_allreduce`` (train): the ``shard_map`` MoE dispatch's
@@ -35,12 +38,23 @@ before its model is built; the code on disk is not changed:
 * ``conv_other_channels`` (ssm): the conv state written into the
   channels of the next rank's shard of the conv cache;
 * ``sp_local_slice`` (ssm): under the sequence split, each rank keeping
-  its own block of its partial sums in place of the reduce-scatter.
+  its own block of its partial sums in place of the reduce-scatter;
+* ``cross_kv_other_heads`` (encdec): the cross-attention's K/V computed
+  from another rank's heads' columns of ``wk`` / ``wv`` (both rolled by
+  one rank's heads);
+* ``kv_seq_without_combine`` (encdec): under ``kv_seq``, each rank's
+  cross-attention over its own slice of the frames taken as the whole,
+  without ``lse_combine``;
+* ``thw_first_rows`` (encdec): every rank rotating by the M-RoPE
+  positions of the global first rows, not its own;
+* ``splice_first_rows`` (encdec): every rank splicing the vision
+  embeddings of the global first rows over its own rows.
 
 Prints the card's name and power limit, then one JSON line a run: the
 gaps the phase reads, whether each passes its limits
 (``chip_smoke.MESH_FOUR_GAP``, ``chip_smoke.MESH_SERVE_GAP``,
-``chip_smoke.MESH_SSM_GAP`` and ``MESH_SSM_SERVE_GAP``), whether the
+``chip_smoke.MESH_SSM_GAP`` and ``MESH_SSM_SERVE_GAP``,
+``chip_smoke.MESH_ENCDEC_GAP`` and ``MESH_ENCDEC_SERVE_GAP``), whether the
 ranks agree, and the readings behind them.  A run whose ranks raise is
 reported as such.
 """
@@ -163,13 +177,67 @@ def _ssm_sp_local_slice() -> None:
     ssm.scatter_sum_dim = lambda x, dim, group: x.chunk(dist.get_world_size(group), dim)[dist.get_rank(group)]
 
 
+def _encdec_cross_kv_other_heads() -> None:
+    from repro_torch.models import common, encdec
+
+    tp_region, tp = encdec.tp_region, chip_smoke.MESH_FOUR[2]
+
+    def rolled(body, x, weights, rules, mesh, extra=(), inputs=()):
+        if body.__qualname__.startswith("_cross_on_mesh"):
+            weights = list(weights)
+            for i in (1, 2):  # wk, wv
+                w = weights[i]
+                whole = torch.roll(common.whole(w), -(w.shape[1] // tp), 1)
+                weights[i] = common.distribute(whole, common.axes_of(w, mesh), mesh)
+        return tp_region(body, x, weights, rules, mesh, extra, inputs)
+
+    encdec.tp_region = rolled
+
+
+def _encdec_kv_seq_without_combine() -> None:
+    from repro_torch.models import encdec
+
+    encdec.lse_combine = lambda out, lse, mesh, axes: out
+
+
+def _encdec_thw_first_rows() -> None:
+    from repro_torch.models import common, lm
+
+    tp_region = lm.tp_region
+
+    def first_rows(body, x, weights, rules, mesh, extra=(), inputs=()):
+        if inputs:  # M-RoPE's positions: the global first rows, as many as the rank's own
+            (thw, _), rows = inputs[0], common.local(x).shape[0]
+            inputs = ((common.whole(thw)[:, :rows].contiguous(), common.Spec()),)
+        return tp_region(body, x, weights, rules, mesh, extra, inputs)
+
+    lm.tp_region = first_rows
+
+
+def _encdec_splice_first_rows() -> None:
+    from repro_torch.models import common, lm
+
+    region = lm.region
+
+    def first_splice(fn, args, in_specs, out_specs, **kw):
+        if fn is lm._splice:
+            x, ve = args
+            args, in_specs = (x, common.whole(ve)[: common.local(x).shape[0]].contiguous()), (in_specs[0], None)
+        return region(fn, args, in_specs, out_specs, **kw)
+
+    lm.region = first_splice
+
+
 FAULTS = {"tensor_allreduce": _skip_tensor_allreduce, "norm_per_rank": _norm_per_rank,
           "global_capacity": _global_capacity}
 SERVE_FAULTS = {"attn_allreduce": _skip_attn_allreduce, "kv_seq_every_shard": _kv_seq_every_shard,
                 "lse_mean": _lse_mean}
 SSM_FAULTS = {"norm_own_channels": _ssm_norm_own_channels, "bc_contiguous": _ssm_bc_contiguous,
               "conv_other_channels": _ssm_conv_other_channels, "sp_local_slice": _ssm_sp_local_slice}
-PATHS = {"train": FAULTS, "serve": SERVE_FAULTS, "ssm": SSM_FAULTS}
+ENCDEC_FAULTS = {"cross_kv_other_heads": _encdec_cross_kv_other_heads,
+                 "kv_seq_without_combine": _encdec_kv_seq_without_combine,
+                 "thw_first_rows": _encdec_thw_first_rows, "splice_first_rows": _encdec_splice_first_rows}
+PATHS = {"train": FAULTS, "serve": SERVE_FAULTS, "ssm": SSM_FAULTS, "encdec": ENCDEC_FAULTS}
 
 
 def faulty_rank(mesh, fault):
@@ -188,6 +256,36 @@ def faulty_ssm_rank(mesh, fault):
     if fault is not None:
         SSM_FAULTS[fault]()
     return chip_smoke.mesh_ssm_four_ranks(mesh)
+
+
+def faulty_encdec_rank(mesh, fault):
+    if fault is not None:
+        ENCDEC_FAULTS[fault]()
+    return chip_smoke.mesh_encdec_four_ranks(mesh)
+
+
+def encdec_readings(faults: list) -> None:
+    """Phase 18 (b) and (c) sound and under each encdec / vlm fault: each
+    arch's training gaps and every serving run's logit gaps against the
+    same model unsharded on the card."""
+    limits = {"train": chip_smoke.MESH_ENCDEC_GAP, "serve": chip_smoke.MESH_ENCDEC_SERVE_GAP}
+    for fault in [None, *faults]:
+        row = {"fault": fault or "none"}
+        try:
+            out = ranks.run_ranks(faulty_encdec_rank, chip_smoke.MESH_FOUR, chip_smoke.MESH_NAMES, backend="gloo",
+                                  device="cuda", args=(fault,))
+        except Exception as e:  # a rank raised: the fault stopped the run
+            row["raised"] = f"{type(e).__name__}: {str(e)[-600:]}"
+        else:
+            for arch, got in chip_smoke.mesh_encdec_readings(out).items():
+                got.pop("ref_train")
+                past = {k: not v <= limits["train"][k] for k, v in got["train"].items()}
+                for case in ("b", "c"):
+                    if case in got:
+                        past[case] = [k for k, lim in limits["serve"].items() if not got[case][k] <= lim]
+                row[arch] = {"readings": got, "past_limit": past,
+                             "ranks_agree": all(r[arch]["b"]["tokens"] == out[0][arch]["b"]["tokens"] for r in out)}
+        print(json.dumps(row), flush=True)
 
 
 def ssm_readings(faults: list) -> None:
@@ -257,6 +355,9 @@ def main() -> None:
         return
     if args.path == "ssm":
         ssm_readings(faults)
+        return
+    if args.path == "encdec":
+        encdec_readings(faults)
         return
     cfg, run, batch = chip_smoke.mesh_four_model()
     ref = chip_smoke.unsharded_steps(cfg, run, [batch] * chip_smoke.MESH_FOUR_STEPS)
