@@ -179,16 +179,15 @@ no result line):
    and grad_norm equal in bits to the unsharded ``sorted`` step on the
    same state and batch (both under deterministic algorithms), step ms
    and max allocated beside phase 11's; (b) 4 ranks sharing the card
-   over gloo on (1, 2, 2), 2 of 27 layers, 4 x 1,024 tokens, 2 steps on
-   one batch without warmup, each rank drawing the parameters from one
-   seed and keeping its shard: finite losses, the same metrics on every
-   rank, 4 launches of K1 a step on each; against the same model's two
-   unsharded steps on the card, relative, step 1's loss within 1e-3, its
-   grad_norm within 1e-3 and the loss step 1's update took off the batch
-   within 1e-1 (limits set between the sound run's readings and planted
-   faults', ``tools/mesh_fault_readings.py``); step 1's share of the wall
-   time in DTensor's redistributions (clocked, synchronised), step 2's
-   ms unclocked;
+   over gloo on (1, 2, 2), 2 of 27 layers, 4 x 1,024 tokens, one step
+   without warmup, each rank drawing the parameters from one seed and
+   keeping its shard: finite losses, the same metrics on every rank, 4
+   launches of K1 a step on each; against the same model's unsharded
+   step on the card, relative, step 1's loss within 1e-3 and its
+   grad_norm within 1e-3 (limits set between the sound run's readings
+   and planted faults', ``tools/mesh_fault_readings.py``); the step's
+   share of the wall time in DTensor's redistributions (clocked,
+   synchronised);
 16. serving over a mesh (``ServeEngine(rules=...)``, ``prefill`` and
    ``decode_step`` on DTensors, caches laid out by ``cache_specs``),
    DeepSeek-V2-Lite at full width with its ``shard_map`` MoE dispatch,
@@ -198,7 +197,7 @@ no result line):
    forward and K5 once, the largest logit gap to phase 9, prefill and
    decode ms, max allocated, and the card's memory back after the rank;
    (b) 4 ranks sharing the card over gloo on (1, 2, 2), 2 of 27 layers,
-   bf16 compute, 4 requests of the launcher's mix, 8 new tokens, against
+   bf16 compute, 4 requests of the launcher's mix, 2 new tokens, against
    the same model unsharded on the card fed the sharded run's tokens:
    the prefill's and each decode step's logits within limits relative to
    the unsharded logits (set between the sound run's readings and planted
@@ -262,11 +261,29 @@ no result line):
    at global batch 1 (``kv_seq="data"``: the self and the cross caches
    split along their sequence, 750 of the 1,500 frames a rank), a
    448-token prompt, ``max_len`` 512, 4 decode steps, with (b)'s gates;
-19. a ``kernels`` JSON line with each kernel's launches on its path
+19. attention under sequence parallelism over a mesh (K and V gathered
+   along the sequence inside each attention region, the queries of each
+   rank's chunk attending from its start), after phase 18: (a) world
+   size 1 over NCCL on (1, 1, 1) under the production (16, 16) mesh's
+   SP rules by hand (``heads=None, seq="model"``; ``kv_seq="model"`` for
+   serving): phase 15 (a)'s DeepSeek-V2-Lite cut one step equal in bits
+   to phase 15 (a)'s unsharded first step, K1 launched as often; gemma3-4b
+   at full width, all layers, phase 9's first batch served through
+   ``ServeEngine(rules=...)``: the tokens equal the unsharded engine's;
+   (b) 4 ranks sharing the card over gloo on (1, 1, 4): whisper-tiny at
+   full width and depth under ``rules_for`` (6 heads on 4: SP, the
+   encoder's frames split too) one step of 4 x 448, then a prefill of
+   that batch and 3 decode steps; gemma3-4b at full width, 2 of 34
+   layers, one step of 2 x 2,048 under the production rules; each held to
+   the same model unsharded on the card within ``MESH_SP_GAP`` and
+   ``MESH_SP_SERVE_GAP`` (limits between the sound run's readings and
+   planted faults', ``tools/mesh_fault_readings.py --path sp``), the same
+   metrics and tokens on every rank;
+20. a ``kernels`` JSON line with each kernel's launches on its path
    (phase 3 for the sort kernels, the short segments for the row kernel,
    phase 5 for the tagged pair kernel, each plus its launches in phases
    7, 8, 9, 10, 11, 12 (a) and (b), 14 (a) and (b), 15 (a) and (b), 16
-   (a)-(c), 17 (a)-(c) and 18 (a)-(c), summed over the ranks; the untagged pair kernel and the
+   (a)-(c), 17 (a)-(c), 18 (a)-(c) and 19 (a) and (b), summed over the ranks; the untagged pair kernel and the
    pair row kernel have no caller on any path and are checked in phase 2 only), each
    kernel's device time and launches a call (the script fails if the
    profiler gave none after three sessions), and K1's times at the
@@ -2739,15 +2756,14 @@ def distributed_path() -> dict:
 # ---------------------------------------------------------------- phase 15
 MESH_ARCH = TRAIN_ARCH  # its production MoE dispatch is shard_map
 MESH_ONE_STEPS = 3  # (a): phase 11's cut (4 of 27 layers, 2 x 4,096 tokens, remat)
-# (b): 2 of 27 layers, a batch of 4 x 1,024, on (1, 2, 2) over 4 ranks sharing the card; step 2 runs on
-# step 1's batch, so its loss shows how far step 1's update moved the model
-MESH_FOUR, MESH_FOUR_LAYERS, MESH_FOUR_BATCH, MESH_FOUR_SEQ, MESH_FOUR_STEPS = (1, 2, 2), 2, 4, 1024, 2
-# (b)'s limits against the unsharded steps, relative: step 1's loss and grad_norm, and the loss that step
-# 1's update took off the batch.  Each lies between the sound run's gap and the planted faults' that it
-# catches (tools/mesh_fault_readings.py, PERF.md): sound 4.46e-4, 3.07e-5, 3.29e-2; the tensor axis's
-# all-reduce skipped -, 1.10e-2, -; a replicated leaf's norm counted per rank -, 1.32e-1, -; the global
-# capacity in place of the local 1.98e-3, 7.53e-3, 1.79e-1
-MESH_FOUR_GAP = {"loss": 1e-3, "grad_norm": 1e-3, "drop": 1e-1}
+# (b): 2 of 27 layers, a batch of 4 x 1,024, on (1, 2, 2) over 4 ranks sharing the card, one step (each
+# planted fault below passes step 1's loss or grad_norm limit, so a second step's reading is not needed)
+MESH_FOUR, MESH_FOUR_LAYERS, MESH_FOUR_BATCH, MESH_FOUR_SEQ, MESH_FOUR_STEPS = (1, 2, 2), 2, 4, 1024, 1
+# (b)'s limits against the unsharded step, relative: step 1's loss and grad_norm.  Each lies between the
+# sound run's gap and the planted faults' that it catches (tools/mesh_fault_readings.py, PERF.md): sound
+# 4.46e-4, 3.07e-5; the tensor axis's all-reduce skipped -, 1.10e-2; a replicated leaf's norm counted per
+# rank -, 1.32e-1; the global capacity in place of the local 1.98e-3, 7.53e-3
+MESH_FOUR_GAP = {"loss": 1e-3, "grad_norm": 1e-3}
 MESH_NAMES = ("pod", "data", "model")
 
 
@@ -2859,10 +2875,11 @@ def clock_redistributions(secs: list):
 def mesh_four_ranks(mesh) -> dict:
     """Phase 15 (b) on one of 4 ranks sharing the card over gloo, mesh
     (1, 2, 2): DeepSeek-V2-Lite at full width, 2 layers, 4 x 1,024 tokens,
-    2 steps on one batch.  Each rank draws the whole parameter tree from
-    seed 0 and keeps its shard (the moments are made on the shards), so
-    the card never holds 4 whole states.  Step 1 runs with DTensor's
-    redistributions clocked (their share), step 2 without (its time)."""
+    ``MESH_FOUR_STEPS`` steps on one batch.  Each rank draws the whole
+    parameter tree from seed 0 and keeps its shard (the moments are made
+    on the shards), so the card never holds 4 whole states.  Step 1 runs
+    with DTensor's redistributions clocked (their share), any later step
+    without (its time)."""
     cfg, run, batch = mesh_four_model()
     params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
     rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, params)
@@ -2918,6 +2935,7 @@ def mesh_training() -> dict:
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
     ms, plain = one["metrics"], one["plain"]
+    PHASE15_PLAIN.update(plain, k1=one["plain_k1"])
     losses = [m["loss"] for m in ms]
     want_k1 = 2 * TRAIN_LAYERS
     print(f"  (a) world size 1 over nccl, mesh (1, 1, 1), experts stored {one['wi']}: losses "
@@ -2948,13 +2966,13 @@ def mesh_training() -> dict:
     share = ("not measured (this torch has no redistribute_local_tensor)" if coll[0] is None else
              round(max(coll) / walls[0], 3))
     print(f"  (b) 4 ranks over gloo on {MESH_FOUR}, {n:,} counted weights, {sum(r['local_bytes'] for r in ranks_out) / 1e9:.1f} GB "
-          f"of state over the ranks, 2 steps on one batch: losses {[m['loss'] for m in first]!r}, grad_norm "
-          f"{[m['grad_norm'] for m in first]!r}; the unsharded steps on the card: losses "
-          f"{[m['loss'] for m in ref]!r}, grad_norm {[m['grad_norm'] for m in ref]!r}; relative gaps: step 1's "
-          f"loss {gap['loss']:.3e}, grad_norm {gap['grad_norm']:.3e}, the loss step 1's update took off "
-          f"{gap['drop']:.3e} (limits {MESH_FOUR_GAP}); step ms (slowest rank): step 1 with DTensor's "
-          f"redistributions clocked (synchronised) {walls[0]:.1f}, {share} of it in them; step 2 unclocked "
-          f"{walls[1]:.1f}; K1 launches a step by rank {[r['per_step'] for r in ranks_out]}; max allocated by "
+          f"of state over the ranks, {MESH_FOUR_STEPS} step(s) on one batch: losses {[m['loss'] for m in first]!r}, "
+          f"grad_norm {[m['grad_norm'] for m in first]!r}; the unsharded steps on the card: losses "
+          f"{[m['loss'] for m in ref]!r}, grad_norm {[m['grad_norm'] for m in ref]!r}; relative gaps "
+          f"{ {k: f'{v:.3e}' for k, v in gap.items()} } (limits {MESH_FOUR_GAP}); step ms (slowest rank): step 1 "
+          f"with DTensor's redistributions clocked (synchronised) {walls[0]:.1f}, {share} of it in them"
+          f"{'; later steps unclocked ' + str([round(w, 1) for w in walls[1:]]) if len(walls) > 1 else ''}; K1 "
+          f"launches a step by rank {[r['per_step'] for r in ranks_out]}; max allocated by "
           f"rank {[round(r['peak'] / 2**30, 2) for r in ranks_out]} GiB")
     if not all(math.isfinite(m["loss"]) for r in ranks_out for m in r["metrics"]):
         fail("phase 15 (b): a loss is not finite")
@@ -2963,7 +2981,7 @@ def mesh_training() -> dict:
     if any(r["per_step"] != [2 * MESH_FOUR_LAYERS] * MESH_FOUR_STEPS for r in ranks_out):
         fail(f"phase 15 (b): K1 launches a step by rank {[r['per_step'] for r in ranks_out]}, "
              f"not {2 * MESH_FOUR_LAYERS}")
-    if not all(gap[k] <= MESH_FOUR_GAP[k] for k in MESH_FOUR_GAP):
+    if not all(gap[k] <= MESH_FOUR_GAP[k] for k in gap):
         fail(f"phase 15 (b): the gaps {gap} to the unsharded steps pass the limits {MESH_FOUR_GAP}")
     for r in ranks_out:
         total.update(r["launches"])
@@ -2972,7 +2990,7 @@ def mesh_training() -> dict:
 
 
 # ---------------------------------------------------------------- phase 16
-MESH_SERVE_FOUR_LAYERS, MESH_SERVE_FOUR_NEW = 2, 8  # (b): 2 of 27 layers, 8 new tokens
+MESH_SERVE_FOUR_LAYERS, MESH_SERVE_FOUR_NEW = 2, 2  # (b): 2 of 27 layers, 2 new tokens (a prefill, one decode step)
 MESH_SERVE_KV_PROMPT, MESH_SERVE_KV_MAX_LEN, MESH_SERVE_KV_STEPS = 1024, 2048, 4  # (c): batch 1, kv_seq
 # (b)'s and (c)'s limits on the logits against the unsharded model on the card fed the same tokens (in
 # the batch shards' row groups), each forward's largest gap relative to the unsharded logits' largest
@@ -3333,13 +3351,13 @@ def mesh_ssm_model(arch: str):
     return cfg, mesh_run(cfg, batch, seq), SyntheticLMData(cfg, batch, seq, seed=0, device=DEV).next_batch()
 
 
-def mesh_steps(mesh, cfg, run, batch, steps: int = 2) -> dict:
-    """``steps`` steps on one batch over the ranks, under ``rules_for``,
-    from the parameters of seed 0 (each rank keeps its shard); step 1 with
-    DTensor's redistributions clocked."""
+def mesh_steps(mesh, cfg, run, batch, steps: int = 2, rules=None) -> dict:
+    """``steps`` steps on one batch over the ranks, under ``rules`` (default
+    ``rules_for``'s), from the parameters of seed 0 (each rank keeps its
+    shard); step 1 with DTensor's redistributions clocked."""
     api = registry.get_model_api(cfg)
     params = api.init(cfg, torch.Generator(device=DEV).manual_seed(0))
-    rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, params)
+    rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, params, rules)
     params = spec_map(lambda s, x: distribute(x, s, mesh), sspecs["params"], params)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3723,10 +3741,13 @@ def mesh_encdec_model(arch: str):
     return cfg, mesh_run(cfg, batch, seq), vision_rows(cfg, data.next_batch()), steps
 
 
-def mesh_vision_serve(mesh, cfg, params, batch: dict) -> dict:
-    """A prefill of ``batch``'s rows with their vision inputs under the
-    prefill rules, then ``MESH_VLM_DECODE`` greedy decode steps under the
-    decode rules; each forward logged as ``forward_log`` logs it."""
+def mesh_vision_serve(mesh, cfg, params, batch: dict, steps: int = MESH_VLM_DECODE,
+                      max_len: "int | None" = None, prefill_rules=None) -> dict:
+    """A prefill of ``batch``'s rows with their family's inputs (vision or
+    encoder) under ``prefill_rules`` (default the prefill rules of
+    ``rules_for``), then ``steps`` greedy decode steps under the decode
+    rules, into a cache of ``max_len`` (default the prompt and the
+    steps); each forward logged as ``forward_log`` logs it."""
     api = registry.get_model_api(cfg)
     B, S = batch["tokens"].shape
     prompt = {k: v for k, v in batch.items() if k != "labels"}
@@ -3744,18 +3765,20 @@ def mesh_vision_serve(mesh, cfg, params, batch: dict) -> dict:
 
     reset_launches()
     with set_mesh(mesh):
-        rules = sharding.rules_for(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
-        cache = api.init_cache(cfg, B, S + MESH_VLM_DECODE, device=DEV)
+        rules = prefill_rules or sharding.rules_for(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
+        cache = api.init_cache(cfg, B, max_len or S + steps, device=DEV)
+        prefill_rules = rules
         logits, cache = logged("prefill", lambda: api.prefill(params, prompt, cfg, rules, cache), batch["tokens"])
         rules = sharding.rules_for(cfg, ShapeConfig("decode", S, B, "decode"), mesh)
-        for j in range(MESH_VLM_DECODE):
+        for j in range(steps):
             tok = torch.argmax(logits, -1)[:, None]
             logits, cache = logged("decode", lambda: api.decode_step(params, tok, cfg, rules, cache, S + j), tok)
     if torch.distributed.get_rank():
         for f in log:
             f.pop("logits")
     return {"tokens": [f["tokens"].tolist() for f in log[1:]], "log": log, "launches": dict(launch_counts()),
-            "rules": (rules.batch, rules.kv_seq)}
+            "rules": (rules.batch, rules.kv_seq), "prefill_rules": (prefill_rules.heads, prefill_rules.seq,
+                                                                    prefill_rules.kv_seq)}
 
 
 def mesh_encdec_four_ranks(mesh) -> dict:
@@ -3949,6 +3972,266 @@ def mesh_encdec_families() -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------- phase 19
+SP_DENSE_ARCH = "gemma3-4b"  # 8 heads and 4 KV heads: SP on the production (16, 16) mesh
+SP_ONE_RULES = {"heads": None, "seq": "model"}  # (a): the production mesh's SP rules, by hand on one rank
+SP_ONE_SERVE_RULES = dict(SP_ONE_RULES, kv_seq="model")  # with the cache split as the prefill rules split it
+# (b) on (1, 1, 4) over 4 ranks sharing the card: (arch, layers (None: all), batch, sequence); whisper-tiny's
+# 6 heads give SP under rules_for itself, gemma3-4b takes the production rules by hand (its 8 heads divide 4)
+MESH_SP_FOUR = (1, 1, 4)
+MESH_SP_CUTS = ((ENCDEC_MESH_ARCH, None, 4, 448), (SP_DENSE_ARCH, 2, 2, 2048))
+MESH_SP_DECODE = 3  # whisper-tiny's decode steps after its prefill in (b)
+PHASE15_PLAIN: dict = {}  # phase 15 (a)'s unsharded first step (metrics and bits), which phase 19 (a) is held to
+# (b)'s limits against the same models unsharded on the card, as phase 18's: training, relative, step 1's loss
+# and grad_norm, by arch; serving, each forward's largest logit gap relative to the unsharded logits' largest
+# magnitude.  Each lies between the sound runs' readings and the planted faults' that it catches
+# (tools/mesh_fault_readings.py --path sp, PERF.md; H100 80GB HBM3, 700 W).  Sound whisper-tiny / gemma3-4b:
+# loss 0.0 / 0.0, grad_norm 2.5e-3 / 5.2e-6; q_offset 0: 1.0e-2, 7.6e-3 / 2.6e-3, 7.4e-2; K/V not gathered:
+# 5.3e-3, 0.10 / 1.8e-4, 5.4e-2; positions from 0: 7.0e-3, 5.3e-2 / 1.1e-4, 6.7e-3.  Serving, sound prefill /
+# worst decode / decode median 0.0, 7.1e-3, 6.9e-3; the three faults 0.35-0.55, 0.18-0.33, 0.18-0.32
+MESH_SP_GAP = {ENCDEC_MESH_ARCH: {"loss": 1e-3, "grad_norm": 1.5e-2}, SP_DENSE_ARCH: {"loss": 1e-3, "grad_norm": 1e-3}}
+MESH_SP_SERVE_GAP = {"prefill": 0.05, "decode": 0.03, "decode_median": 0.03}
+
+
+def sp_rules(cfg, shape, mesh, serve: bool = False):
+    """``rules_for``'s batch, FSDP and tensor axes on ``mesh`` with the
+    production mesh's sequence parallelism by hand (``SP_ONE_RULES``,
+    and the cache's ``kv_seq`` for serving)."""
+    return dataclasses.replace(sharding.rules_for(cfg, shape, mesh), **(SP_ONE_SERVE_RULES if serve else SP_ONE_RULES))
+
+
+def mesh_sp_world_one(mesh) -> dict:
+    """Phase 19 (a), the one rank of an NCCL group on (1, 1, 1), under the
+    production mesh's SP rules by hand: phase 15 (a)'s DeepSeek-V2-Lite cut
+    (4 layers, 2 x 4,096 tokens, ``shard_map`` dispatch) one step through
+    ``jit_train_step(mesh=...)`` on phase 15 (a)'s first state and batch,
+    under deterministic algorithms; then gemma3-4b at full width, all
+    layers, float32 weights from seed 0, phase 9's first batch served
+    unsharded and through ``ServeEngine(rules=...)`` (the cache split as
+    ``kv_seq``)."""
+    out = {}
+    cfg = registry.get_config(MESH_ARCH).replace(num_layers=TRAIN_LAYERS)
+    run = mesh_run(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    batch = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEV).next_batch()
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = init_train_state(torch.Generator(device=DEV).manual_seed(0), cfg, run, lm)
+        rules, sspecs, bspecs = sharding.train_specs(cfg, run.shape, run, mesh, state["params"],
+                                                     sp_rules(cfg, run.shape, mesh))
+        step = jit_train_step(make_train_step(cfg, run, lm, rules), mesh, sspecs, bspecs)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["train"] = {"metrics": {k: float(v) for k, v in m.items()}, "ms": (time.perf_counter() - t0) * 1e3,
+                        "bits": (int(bits(m["loss"])), int(bits(m["grad_norm"]))), "rules": str(rules),
+                        "k1": launch_counts()["bucket_count_rank"], "peak": torch.cuda.max_memory_allocated()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(SP_DENSE_ARCH)
+    reqs = synthetic_requests(SERVE_BATCHES[0], cfg.vocab_size, SERVE_NEW_TOKENS)
+    params = lm.init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    served = {}
+    for kind in ("unsharded", "mesh"):
+        if kind == "mesh":
+            rules = sp_rules(cfg, ShapeConfig("serve", SERVE_MAX_LEN, len(reqs), "prefill"), mesh, serve=True)
+            with set_mesh(mesh):
+                eng = ServeEngine(cfg, params, lm, rules=rules, max_len=SERVE_MAX_LEN)
+        else:
+            eng = ServeEngine(cfg, params, lm, max_len=SERVE_MAX_LEN)
+        log: list = []
+        forward_log(eng, log)
+        before = launch_counts()
+        toks = eng.generate(reqs)
+        served[kind] = {"tokens": toks, "log": log, "launches": {k: v - before[k] for k, v in launch_counts().items()}}
+        del eng
+    out["serve"] = dict(served["mesh"], plain=served["unsharded"], rules=str(rules),
+                        counted=lm.counted_params(params))
+    out["launches"] = dict(launch_counts())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_sp_model(arch: str):
+    """(b)'s cut of ``arch``: (config, run, its one batch)."""
+    _, n_layers, batch, seq = next(c for c in MESH_SP_CUTS if c[0] == arch)
+    cfg = registry.get_config(arch)
+    cfg = cfg.replace(num_layers=n_layers) if n_layers else cfg
+    return cfg, mesh_run(cfg, batch, seq), SyntheticLMData(cfg, batch, seq, seed=0, device=DEV).next_batch()
+
+
+def mesh_sp_four_ranks(mesh) -> dict:
+    """Phase 19 (b) on one of 4 ranks sharing the card over gloo, mesh
+    (1, 1, 4): whisper-tiny at full width and depth under ``rules_for`` (6
+    heads on 4: SP, its 1,500 encoder frames split too), one step on 4 x
+    448 tokens, then a prefill of that batch with its encoder frames under
+    the prefill rules (``kv_seq="model"``) and ``MESH_SP_DECODE`` decode
+    steps; gemma3-4b at full width, 2 of 34 layers, one step on 2 x 2,048
+    tokens under the production rules by hand (its 1,024-wide windows
+    cross the 512-token chunks)."""
+    out = {}
+    cfg, run, batch = mesh_sp_model(ENCDEC_MESH_ARCH)
+    res = {"train": mesh_steps(mesh, cfg, run, batch, 1)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = registry.get_model_api(cfg).init(cfg, torch.Generator(device=DEV).manual_seed(0))
+    B, S = batch["tokens"].shape
+    rules = sharding.rules_for(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
+    params = lay_out(params, sharding.param_layout(cfg, rules, mesh, params), mesh)  # each rank its shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["b"] = mesh_vision_serve(mesh, cfg, params, batch, MESH_SP_DECODE, S + MESH_SP_DECODE + 1)
+    out[ENCDEC_MESH_ARCH] = res
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, run, batch = mesh_sp_model(SP_DENSE_ARCH)
+    out[SP_DENSE_ARCH] = {"train": mesh_steps(mesh, cfg, run, batch, 1, sp_rules(cfg, run.shape, mesh))}
+    return out
+
+
+def mesh_sp_readings(ranks_out: list) -> dict:
+    """The ranks' runs held to the same models unsharded on the card: per
+    arch step 1's training gaps (``mesh_four_gaps``) and whisper-tiny's
+    serving gaps against the unsharded model fed its inputs and tokens."""
+    readings = {}
+    for arch, *_ in MESH_SP_CUTS:
+        cfg, run, batch = mesh_sp_model(arch)
+        out = [r[arch] for r in ranks_out]
+        ref = unsharded_steps(cfg, run, [batch])
+        got = {"train": mesh_four_gaps(out[0]["train"]["metrics"], ref), "ref_train": ref}
+        if "b" in out[0]:
+            params = registry.get_model_api(cfg).init(cfg, torch.Generator(device=DEV).manual_seed(0))
+            S = batch["tokens"].shape[1]
+            tf = teacher_forced(cfg, params, out[0]["b"]["log"], S + MESH_SP_DECODE + 1,
+                                inputs={"enc_frames": batch["enc_frames"]})
+            got["b"] = logit_gaps(out[0]["b"]["log"], tf)
+            del params
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        readings[arch] = got
+    return readings
+
+
+def mesh_sp() -> dict:
+    """Phase 19: attention under sequence parallelism over a mesh, (a)
+    world size 1 over NCCL under the production mesh's SP rules, (b) 4
+    ranks sharing the card over gloo.  Returns the launches of both,
+    summed over the ranks."""
+    t0 = time.perf_counter()
+    card = smi()
+    total = collections.Counter()
+    full = {a: registry.get_config(a) for a, *_ in MESH_SP_CUTS}
+    cuts = ", ".join(f"{a} {'all ' + str(full[a].num_layers) if n is None else f'depth {full[a].num_layers} -> {n}'} "
+                     f"layers, one step of {b} x {s}" for a, n, b, s in MESH_SP_CUTS)
+    print(f"phase 19 (attention under sequence parallelism over a mesh, {card}): at full width; (a) the "
+          f"production mesh's rules {SP_ONE_RULES} by hand, {MESH_ARCH} at phase 15 (a)'s cut (depth "
+          f"{registry.get_config(MESH_ARCH).num_layers} -> {TRAIN_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ}) one step, "
+          f"{SP_DENSE_ARCH} "
+          f"all layers serving phase 9's first batch (kv_seq 'model'); reduced: (b) on {MESH_SP_FOUR}: {cuts}; "
+          f"{ENCDEC_MESH_ARCH} a prefill and {MESH_SP_DECODE} decode steps; widths as published")
+    if not PHASE15_PLAIN:
+        fail("phase 19 (a): phase 15 kept no unsharded step")
+    base = torch.cuda.memory_allocated()
+    env_before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # the rank's deterministic step
+    try:
+        (one,) = rt_ranks.run_ranks(mesh_sp_world_one, (1, 1, 1), MESH_NAMES, backend="nccl", device="cuda")
+    finally:
+        if env_before is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env_before
+    allocated_back(base, "phase 19 (a)'s rank", phase=19)
+    train, plain = one["train"], PHASE15_PLAIN
+    print(f"  (a) world size 1 over nccl, mesh (1, 1, 1), {train['rules']}: {MESH_ARCH} step 1 loss "
+          f"{train['metrics']['loss']!r} vs the unsharded {plain['loss']!r}, grad_norm "
+          f"{train['metrics']['grad_norm']!r} vs {plain['grad_norm']!r}; bits equal "
+          f"{train['bits'] == tuple(plain['bits'])}; K1 {train['k1']} launches (the unsharded step: "
+          f"{plain['k1']}); {train['ms']:.1f} ms (synchronised, deterministic algorithms), max allocated "
+          f"{train['peak'] / 2**30:.2f} GiB")
+    if train["bits"] != tuple(plain["bits"]):
+        fail("phase 19 (a): the step under SP differs in bits from the unsharded step")
+    if not train["k1"] or train["k1"] != plain["k1"]:
+        fail(f"phase 19 (a): K1 launched {train['k1']} times under SP, the unsharded step {plain['k1']}")
+    serve = one["serve"]
+    log, ref = serve["log"], serve["plain"]["log"]
+    gap = max(float((f["logits"] - r["logits"]).abs().max()) for f, r in zip(log, ref))
+    decode_ms = [f["ms"] for f in log[1:]]
+    print(f"  (a) {SP_DENSE_ARCH} ({serve['counted']:,} counted weights) served over the mesh, {serve['rules']}: "
+          f"tokens "
+          f"equal the unsharded engine's {serve['tokens'] == serve['plain']['tokens']}; largest logit gap "
+          f"{gap!r} over {len(log)} forwards; K5 {serve['launches'].get('sort_pairs_tile_tagged', 0)}; prefill "
+          f"{log[0]['ms']:.3f} ms (unsharded {ref[0]['ms']:.3f}), decode {statistics.median(decode_ms):.3f} ms a "
+          f"step (median of {len(decode_ms)}; unsharded {statistics.median(f['ms'] for f in ref[1:]):.3f}) "
+          f"synchronised; max allocated {max(f['peak'] for f in log) / 2**30:.2f} GiB")
+    if serve["tokens"] != serve["plain"]["tokens"]:
+        fail(f"phase 19 (a): {SP_DENSE_ARCH}'s tokens over the mesh differ from the unsharded engine's")
+    if serve["launches"].get("sort_pairs_tile_tagged") != 1:
+        fail(f"phase 19 (a): {SP_DENSE_ARCH}'s launches {serve['launches']}")
+    total.update(one["launches"])
+
+    t_ranks = time.perf_counter()
+    ranks_out = rt_ranks.run_ranks(mesh_sp_four_ranks, MESH_SP_FOUR, MESH_NAMES, backend="gloo", device="cuda")
+    print(f"  (b): the 4 ranks took {time.perf_counter() - t_ranks:.1f} s")
+    before = launch_counts()
+    readings = mesh_sp_readings(ranks_out)
+    total.update({k: v - before[k] for k, v in launch_counts().items()})
+    for arch, n_layers, B, S in MESH_SP_CUTS:
+        out = [r[arch] for r in ranks_out]
+        tr, gap = out[0]["train"], readings[arch]["train"]
+        coll = [r["train"]["coll_ms"] for r in out]
+        share = "not measured" if coll[0] is None else round(max(coll) / max(r["train"]["walls"][0] for r in out), 3)
+        print(f"  (b) {arch} on {MESH_SP_FOUR}, rules (seq, heads) {tr['rules']}: one step of {B} x {S}: loss "
+              f"{tr['metrics'][0]['loss']!r}, grad_norm {tr['metrics'][0]['grad_norm']!r}; unsharded on the card: "
+              f"loss {readings[arch]['ref_train'][0]['loss']!r}, grad_norm "
+              f"{readings[arch]['ref_train'][0]['grad_norm']!r}; relative gaps "
+              f"{ {k: f'{v:.3e}' for k, v in gap.items()} } (limits {MESH_SP_GAP[arch]}); step ms (slowest rank, "
+              f"clocked) "
+              f"{max(r['train']['walls'][0] for r in out):.1f}, {share} of it in DTensor's redistributions; max "
+              f"allocated by rank {[round(r['train']['peak'] / 2**30, 2) for r in out]} GiB")
+        if tr["rules"] != ("model", None):
+            fail(f"phase 19 (b) {arch}: the rules (seq, heads) {tr['rules']} give no sequence parallelism")
+        if not all(math.isfinite(m["loss"]) for r in out for m in r["train"]["metrics"]):
+            fail(f"phase 19 (b) {arch}: a loss is not finite")
+        if any(r["train"]["metrics"] != tr["metrics"] for r in out):
+            fail(f"phase 19 (b) {arch}: the ranks report different metrics")
+        if not all(gap[k] <= MESH_SP_GAP[arch][k] for k in gap):
+            fail(f"phase 19 (b) {arch}: the gaps {gap} to the unsharded step pass the limits {MESH_SP_GAP[arch]}")
+        if "b" in out[0]:
+            runs = [r["b"] for r in out]
+            g = readings[arch]["b"]
+            slow = [max(r["log"][i]["ms"] for r in runs) for i in range(len(runs[0]["log"]))]
+            print(f"  (b) {arch} serving, prefill rules (heads, seq, kv_seq) {runs[0]['prefill_rules']}, decode "
+                  f"rules (batch, kv_seq) {runs[0]['rules']}: a prefill of the batch with its encoder frames and "
+                  f"{MESH_SP_DECODE} decode steps; relative logit gaps to the unsharded model fed the same inputs: "
+                  f"prefill {g['prefill']:.3e}, decode steps {[f'{v:.3e}' for v in g['steps'][1:]]}, median "
+                  f"{g['decode_median']:.3e} (limits {MESH_SP_SERVE_GAP}); slowest rank: prefill {slow[0]:.1f} ms, "
+                  f"decode {statistics.median(slow[1:]):.1f} ms a step; max allocated by rank "
+                  f"{[round(max(f['peak'] for f in r['log']) / 2**30, 2) for r in runs]} GiB")
+            if runs[0]["prefill_rules"][1] != "model":
+                fail(f"phase 19 (b) {arch}: the prefill rules {runs[0]['prefill_rules']} split no sequence")
+            if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+                fail(f"phase 19 (b) {arch}: the ranks emitted different tokens")
+            if not all(math.isfinite(v) for v in g["steps"]):
+                fail(f"phase 19 (b) {arch}: a logit gap is not finite: {g}")
+            if not all(g[k] <= MESH_SP_SERVE_GAP[k] for k in MESH_SP_SERVE_GAP):
+                fail(f"phase 19 (b) {arch}: the logit gaps {g} pass the limits {MESH_SP_SERVE_GAP}")
+            for r in runs:
+                total.update(r["launches"])
+    print(f"phase 19 (attention under sequence parallelism over a mesh): {time.perf_counter() - t0:.1f} s; launches "
+          f"{dict(total)}")
+    return dict(total)
+
+
 def main() -> None:
     t_script = time.perf_counter()
     preflight()
@@ -4026,6 +4309,11 @@ def main() -> None:
     mesh_encdec_counts.update(mesh_encdec_families())
     if mesh_encdec_counts["sort_pairs_tile_tagged"] == 0:
         fail("sort_pairs_tile_tagged never launched on the encdec and vlm families' mesh path")
+    mesh_sp_counts = {name: 0 for name in KERNELS}
+    mesh_sp_counts.update(mesh_sp())
+    for name in ("bucket_count_rank", "sort_pairs_tile_tagged"):
+        if mesh_sp_counts[name] == 0:
+            fail(f"{name} never launched on the sequence-parallel mesh path")
 
     launches = {
         **sort_counts,
@@ -4035,7 +4323,8 @@ def main() -> None:
     for name in launches:
         launches[name] += (serve_counts[name] + verify_counts[name] + perf_counts[name] + model_counts[name]
                            + family_counts[name] + train_counts[name] + dist_counts[name] + mesh_counts[name]
-                           + mesh_serve_counts[name] + mesh_ssm_counts[name] + mesh_encdec_counts[name])
+                           + mesh_serve_counts[name] + mesh_ssm_counts[name] + mesh_encdec_counts[name]
+                           + mesh_sp_counts[name])
     # K6 and K7 have no caller in either package: phase 2 checks them, and
     # every path run above must have launched them no time
     for name in ("batched_row_sort_pairs", "sort_pairs_tile"):
@@ -4043,7 +4332,7 @@ def main() -> None:
             c[name]
             for c in (sort_counts, seg_counts, pair_counts, work_counts, serve_counts, verify_counts, perf_counts,
                       model_counts, family_counts, train_counts, dist_counts, mesh_counts, mesh_serve_counts,
-                      mesh_ssm_counts, mesh_encdec_counts)
+                      mesh_ssm_counts, mesh_encdec_counts, mesh_sp_counts)
         )
         if launches[name]:
             fail(f"{name} launched {launches[name]} times on a path: it has a caller now, so "

@@ -159,16 +159,18 @@ def cache_specs(cfg: ModelConfig, rules: AxisRules, cache_shapes) -> dict:
 
 
 # --------------------------------------------------------------- train specs
-def train_specs(cfg: ModelConfig, shape: ShapeConfig, run, mesh, params):
+def train_specs(cfg: ModelConfig, shape: ShapeConfig, run, mesh, params, rules: "AxisRules | None" = None):
     """(rules, state specs, batch specs) of a training run on ``mesh``, as
     the reference's launcher builds them for ``jit_train_step``: the
     sanitized parameter specs, AdamW's moments (and the float32 master)
     like their parameters, the int8 error feedback likewise, the step and
     the count replicated.  The leaves of ``params`` are tensors or shape
-    tuples."""
+    tuples.  ``rules`` defaults to ``rules_for``'s (a caller may give
+    another mesh's, e.g. the production mesh's sequence parallelism on a
+    smaller one)."""
     from repro_torch.optim.adamw import opt_state_specs
 
-    rules = rules_for(cfg, shape, mesh)
+    rules = rules_for(cfg, shape, mesh) if rules is None else rules
     pspecs = param_layout(cfg, rules, mesh, params)
     opt = opt_state_specs(pspecs)
     if run.master_weights:

@@ -164,8 +164,7 @@ def placements(spec, mesh) -> list:
     out = [Replicate()] * mesh.ndim
     names = mesh.mesh_dim_names
     for dim, entry in enumerate(spec or ()):
-        axes = (entry,) if isinstance(entry, str) else (entry or ())
-        idx = [names.index(a) for a in axes]
+        idx = [names.index(a) for a in spec_axes(entry)]
         if idx != sorted(idx):
             raise ValueError(f"spec entry {entry} is not in mesh order {names}")
         for i in idx:
@@ -180,7 +179,7 @@ def fit_spec(spec, shape, mesh) -> Spec:
     entries = tuple(spec) + (None,) * (len(shape) - len(spec))
     out = []
     for d, e in zip(shape, entries):
-        axes = (e,) if isinstance(e, str) else tuple(e or ())
+        axes = spec_axes(e)
         out.append(e if axes and d % math.prod(sizes[a] for a in axes) == 0 else None)
     return Spec(*out)
 
@@ -216,8 +215,7 @@ def tp_spec(w, rules: AxisRules, mesh) -> Spec:
     """A weight's ``Spec`` with only its tensor-axis entry kept: the
     placement a region computes it in, gathered over FSDP and replicated
     over the batch axes (the reference's weights inside a GSPMD matmul)."""
-    return Spec(*(rules.tensor if e is not None and rules.tensor in ((e,) if isinstance(e, str) else e) else None
-                  for e in axes_of(w, mesh)))
+    return Spec(*(rules.tensor if rules.tensor in spec_axes(e) else None for e in axes_of(w, mesh)))
 
 
 def on_tensor_axis(w, rules: AxisRules, mesh) -> bool:
@@ -318,7 +316,7 @@ def _enter(x, pl, mesh):
     return _ReduceGrad.apply(x, before) if x.requires_grad else x
 
 
-def tp_region(body, x, weights, rules: AxisRules, mesh, extra=(), inputs=()):
+def tp_region(body, x, weights, rules: AxisRules, mesh, extra=(), inputs=(), whole=False):
     """``body(x, *weights, *inputs)`` for a column- then row-parallel block
     (the MLP, attention, cross-attention, the shared experts): ``x`` as it
     lies, each weight gathered over FSDP with its tensor-axis split kept
@@ -329,16 +327,50 @@ def tp_region(body, x, weights, rules: AxisRules, mesh, extra=(), inputs=()):
     ``extra`` gives the ``Spec`` of each further output (K and V, or the
     latent, for prefill's cache), none a partial sum.
 
+    The weights are taken whole, and each rank computes every head or
+    column of its own rows, where ``whole`` is set (attention under
+    ``heads=None``: the heads and the KV heads may not split alike) or
+    where the tensor axis already splits ``x`` (sequence parallelism: one
+    mesh axis cannot split both the rows and the weights).
+
     Callers cast the weights to the dtype the body computes in before the
     region, as the reference casts before its matmul: the gradients' sums
     over the ranks are then taken in that dtype and rounded to the
     parameter's once (a bf16 parameter in a float32 model)."""
-    split = any(on_tensor_axis(w, rules, mesh) for w in weights)
     spec = axes_of(x, mesh)
+    whole = whole or rules.tensor in spec_axes(spec)
+    wspecs = [Spec() if whole else tp_spec(w, rules, mesh) for w in weights]
+    split = any(e is not None for s in wspecs for e in s)
     args = (x, *weights, *(t for t, _ in inputs))
-    specs = (spec, *(tp_spec(w, rules, mesh) for w in weights), *(s for _, s in inputs))
+    specs = (spec, *wspecs, *(s for _, s in inputs))
     return region(body, args, specs, (spec, *extra), partial=[(rules.tensor,) if split else (), *[()] * len(extra)],
                   mesh=mesh)
+
+
+def spec_axes(spec) -> tuple[str, ...]:
+    """Every mesh axis a ``Spec`` (or one entry of it) names, in order."""
+    entries = (spec,) if isinstance(spec, str) or spec is None else spec
+    return tuple(a for e in entries for a in ((e,) if isinstance(e, str) else (e or ())))
+
+
+def heads_whole(rules: AxisRules) -> bool:
+    """Whether attention takes its weights whole: ``heads=None`` (the
+    reference's ``rules_for`` where the heads or the KV heads do not divide
+    the tensor axis), so no rank keeps a share of the heads."""
+    return rules.spec("heads")[0] is None
+
+
+def seq_split(x, mesh):
+    """(the mesh axes that split the DTensor ``x``'s sequence dim (1), this
+    rank's position along them, their process group): ``((), 0, None)``
+    where the dim is whole.  A region's body under sequence parallelism
+    starts its chunk at that position times its local length."""
+    from repro_torch.runtime.ranks import axis_group, shard_index
+
+    axes = spec_axes(axes_of(x, mesh)[1])
+    if not axes:
+        return (), 0, None
+    return axes, shard_index(mesh, axes), axis_group(mesh, axes)
 
 
 def replicated(x, mesh=None):
@@ -493,25 +525,12 @@ def scatter_sum_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _ScatterSumDim.apply(x, dim, group)
 
 
-UNPORTED_ITEMS = {
-    "1d": "attention under sequence parallelism and the dense MoE oracle over a mesh",
-}
-
-
-def unported_on_mesh(what: str, rules: AxisRules, item: str) -> None:
-    """Raise for a path the port does not run over a mesh yet, rather than
-    run it unsharded in silence; ``item`` names its ROADMAP.md entry."""
-    if mesh_for(rules) is not None:
-        raise NotImplementedError(
-            f"{what} over a mesh is not ported yet (ROADMAP.md, Queue 1 item {item}, '{UNPORTED_ITEMS[item]}')"
-        )
-
-
 def gather_seq(x: torch.Tensor, rules: AxisRules) -> torch.Tensor:
     """K or V (B, S, heads, dim) all-gathered over the sequence's shards
-    before attention: the identity in a real run (``seq_shards`` = 1); in a
-    per-device trace under SP, the slice repeated to the whole sequence's
-    length, which the trace counts as the gathered tensor."""
+    before attention in a per-device trace under SP (``seq_shards`` > 1):
+    the slice repeated to the whole sequence's length, which the trace
+    counts as the gathered tensor.  The identity otherwise: a real run
+    under SP gathers inside the attention region (``gather_dim``)."""
     n = rules.seq_shards
     return x if n == 1 else x.repeat(1, n, *([1] * (x.dim() - 2)))
 
@@ -691,8 +710,7 @@ def seq_shard(x) -> tuple[tuple[str, ...], int, int]:
         return (), 0, x.shape[1]
     from repro_torch.runtime.ranks import shard_index
 
-    entry = axes_of(x, x.device_mesh)[1]
-    axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    axes = spec_axes(axes_of(x, x.device_mesh)[1])
     return axes, shard_index(x.device_mesh, axes) * local(x).shape[1], x.shape[1]
 
 

@@ -48,6 +48,7 @@ from repro_torch.models.common import (
     Spec,
     axes_of,
     clone,
+    heads_whole,
     last_position,
     layer,
     lse_combine,
@@ -58,7 +59,9 @@ from repro_torch.models.common import (
     put,
     region,
     seq_shard,
+    seq_split,
     shard,
+    spec_axes,
     tp_region,
     tp_spec,
     tree_map,
@@ -70,7 +73,6 @@ from repro_torch.models.lm import (
     _write_prompt_on_mesh,
     apply_attn_block,
     attn_specs,
-    check_mesh,
     init_attn,
     remat,
 )
@@ -138,12 +140,19 @@ def _positions(S: int, cfg, device, start: int = 0) -> torch.Tensor:
 
 def _plus_positions(x, pe, rules):
     """``x`` in ``pe``'s dtype plus the sinusoid rows ``pe`` (S, d), which
-    every rank holds alike; on a DTensor, in a region on each rank's rows."""
+    every rank holds alike; on a DTensor, in a region on each rank's rows,
+    a rank whose chunk of the sequence starts at ``lo`` (SP) adding the
+    rows from ``lo`` on."""
     mesh = mesh_for(rules)
     if mesh is None:
         return x.to(pe.dtype) + pe
     xs = axes_of(x, mesh)
-    return region(lambda x: x.to(pe.dtype) + pe, (x,), (xs,), (xs,), mesh=mesh)
+    _, index, _ = seq_split(x, mesh)
+
+    def body(x):
+        return x.to(pe.dtype) + pe.narrow(0, index * x.shape[1], x.shape[1])
+
+    return region(body, (x,), (xs,), (xs,), mesh=mesh)
 
 
 def encode(params, frames, cfg, rules: AxisRules):
@@ -202,10 +211,14 @@ def _cross_attend(blk, x, enc_out, cfg, rules, cross_kv=None):
 def _cross_on_mesh(p, h, enc_out, cfg, rules, mesh):
     """Training's and prefill's cross-attention: one region in which each
     rank computes its query heads from its rows of ``h`` and the same
-    heads' K/V from its rows of the encoder output, attends and projects;
-    the output is a partial sum over the tensor axis.  Without autograd
-    recording (prefill) the region also returns the K/V, laid out as the
-    rows and the ``wk`` heads; while it records, (output, None)."""
+    heads' K/V from its rows of the encoder output, gathered whole along
+    the frames, attends and projects; the output is a partial sum over
+    the tensor axis.  Under ``heads=None`` or SP (``h`` split along its
+    sequence) the weights are taken whole: each rank computes every head,
+    its queries from its own chunk of positions, and K/V from the whole
+    encoder output (no mask, no offset).  Without autograd recording
+    (prefill) the region also returns the K/V, laid out as the rows and
+    the ``wk`` heads; while it records, (output, None)."""
     keys = ("wq", "wk", "wv", "wo")
     with_kv = not torch.is_grad_enabled()
 
@@ -217,10 +230,13 @@ def _cross_on_mesh(p, h, enc_out, cfg, rules, mesh):
 
     ws = [p[k].to(cfg.dtype) for k in keys]
     es = axes_of(enc_out, mesh)
+    frames = Spec(es[0], None, None)
+    whole = heads_whole(rules) or rules.tensor in spec_axes(axes_of(h, mesh))
     if not with_kv:
-        return tp_region(body, h, ws, rules, mesh, inputs=((enc_out, es),)), None
-    kv = Spec(es[0], None, rules.tensor if on_tensor_axis(p["wk"], rules, mesh) else None, None)
-    out, ek, ev = tp_region(body, h, ws, rules, mesh, extra=(kv, kv), inputs=((enc_out, es),))
+        return tp_region(body, h, ws, rules, mesh, inputs=((enc_out, frames),), whole=whole), None
+    split = not whole and on_tensor_axis(p["wk"], rules, mesh)
+    kv = Spec(es[0], None, rules.tensor if split else None, None)
+    out, ek, ev = tp_region(body, h, ws, rules, mesh, extra=(kv, kv), inputs=((enc_out, frames),), whole=whole)
     return out, (ek, ev)
 
 
@@ -279,7 +295,6 @@ def _logits(params, x, cfg, rules):
 def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
     """Training forward: batch = {'enc_frames': (B,F,d), 'tokens': (B,S)}.
     Every encoder and decoder layer runs under ``remat``."""
-    check_mesh(cfg, rules)
     enc_out = encode(params, batch["enc_frames"], cfg, rules)
     tokens = batch["tokens"]
     x = _decoder_in(params, tokens, cfg, rules)
@@ -312,7 +327,6 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
     Over a mesh, under ``no_grad`` on inputs laid out as the reference's
     jitted prefill takes them; each layer's K/V are written into copies
     of both cache entries, laid out by ``cache_specs``."""
-    check_mesh(cfg, rules)
     mesh = mesh_for(rules)
     if mesh is not None:
         with torch.no_grad():
@@ -351,7 +365,6 @@ def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict,
     the reference's ``dynamic_slice_in_dim`` clamps it.  Over a mesh each
     layer's self-attention writes its cache shards in place (in a copy)
     and its cross-attention reads its shards of the cross cache."""
-    check_mesh(cfg, rules)
     mesh = mesh_for(rules)
     if mesh is not None:
         with torch.no_grad():

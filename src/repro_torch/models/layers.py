@@ -14,10 +14,10 @@ each run as one ``common.region`` on DTensors: the embedding gathers its
 table whole (the index is data-dependent) and each rank looks up its own
 tokens; the MLP's weights are gathered over FSDP and keep their
 tensor-parallel split, so its output is a partial sum over the tensor
-axis, reduced by ``shard`` before the output bias; the unembed leaves the
+axis, reduced by ``shard`` before the output bias (where the tensor axis
+splits the sequence instead, SP, they are taken whole); the unembed leaves the
 logits split over the vocabulary, or, where the sequence is split over
-the tensor axis (SP, the ssm family), over the sequence with the
-vocabulary whole.
+the tensor axis (SP), over the sequence with the vocabulary whole.
 """
 
 from __future__ import annotations

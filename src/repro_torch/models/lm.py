@@ -46,7 +46,9 @@ from repro_torch.models.common import (
     clone,
     const_init,
     dense_init,
+    gather_dim,
     gather_seq,
+    heads_whole,
     last_position,
     lay_out,
     layer,
@@ -63,11 +65,12 @@ from repro_torch.models.common import (
     region,
     relaid,
     seq_shard,
+    seq_split,
     shard,
+    spec_axes,
     tp_region,
     tp_spec,
     tree_map,
-    unported_on_mesh,
     unstack,
     whole,
 )
@@ -137,14 +140,21 @@ def apply_attn_block(
 
     Under a mesh, one region: each rank attends over its batch rows and
     its heads, and the output projection's partial sums over the tensor
-    axis are reduced by ``shard``.  M-RoPE's ``positions_thw`` (3, B, S)
-    enters the region laid out by the rows of ``x``, so each rank rotates
-    its rows by their own (t, h, w) ids.  Without autograd recording
-    (prefill) the region also returns this layer's K and V, laid out as
-    the output's rows and the ``wk`` heads; while it records (training),
-    the output alone.  A decode step takes the cache entry (DTensors laid
-    out by ``cache_specs``) into the region and writes its local shards in
-    place (``_attn_decode_on_mesh``)."""
+    axis are reduced by ``shard``.  Under ``heads=None`` every weight is
+    taken whole and each rank computes every head of its rows.  Where the
+    sequence of ``x`` is split (``rules.seq``, SP), each rank makes Q, K
+    and V from its own chunk of positions (RoPE at the chunk's global
+    positions), all-gathers K and V along the sequence over the chunks'
+    group (``gather_dim``: a reduce-scatter in the backward) and attends
+    its queries from the chunk's start, so causal and window masks see
+    global positions on both sides.  M-RoPE's ``positions_thw`` (3, B, S)
+    enters the region laid out by the rows and the chunks of ``x``, so
+    each rank rotates its rows by their own (t, h, w) ids.  Without
+    autograd recording (prefill) the region also returns this layer's K
+    and V, laid out as the output's rows and chunks and the ``wk`` heads;
+    while it records (training), the output alone.  A decode step takes
+    the cache entry (DTensors laid out by ``cache_specs``) into the region
+    and writes its local shards in place (``_attn_decode_on_mesh``)."""
     mesh = mesh_for(rules)
     if mesh is not None:
         keys = list(p)
@@ -156,18 +166,25 @@ def apply_attn_block(
             return shard(out, rules, "batch", "seq", None), cache_kv
         with_kv = not torch.is_grad_enabled()
         xs = axes_of(x, mesh)
-        thw = () if positions_thw is None else ((positions_thw, Spec(None, xs[0], None)),)
+        _, chunk, group = seq_split(x, mesh)
+        thw = () if positions_thw is None else ((positions_thw, Spec(None, xs[0], xs[1])),)
 
         def body(x, *rest):
             w, thw_local = dict(zip(keys, rest[: len(keys)])), rest[len(keys) :]
-            out, kv = _attn_core(w, x, cfg, local_rules(rules), positions=positions, window=window, theta=theta,
-                                 positions_thw=thw_local[0] if thw_local else None, causal=causal)
+            lo = chunk * x.shape[1]
+            out, kv = _attn_core(w, x, cfg, local_rules(rules),
+                                 positions=None if positions is None else positions[lo : lo + x.shape[1]],
+                                 window=window, theta=theta, positions_thw=thw_local[0] if thw_local else None,
+                                 causal=causal, q_offset=lo, seq_group=group)
             return (out, *kv) if with_kv else out
 
+        whole = heads_whole(rules)
         if not with_kv:
-            return shard(tp_region(body, x, ws, rules, mesh, inputs=thw), rules, "batch", "seq", None), None
-        kv = Spec(xs[0], xs[1], rules.tensor if on_tensor_axis(p["wk"], rules, mesh) else None, None)
-        out, k, v = tp_region(body, x, ws, rules, mesh, extra=(kv, kv), inputs=thw)
+            return shard(tp_region(body, x, ws, rules, mesh, inputs=thw, whole=whole), rules, "batch", "seq",
+                         None), None
+        split = not (whole or rules.tensor in spec_axes(xs)) and on_tensor_axis(p["wk"], rules, mesh)
+        kv = Spec(xs[0], xs[1], rules.tensor if split else None, None)
+        out, k, v = tp_region(body, x, ws, rules, mesh, extra=(kv, kv), inputs=thw, whole=whole)
         return shard(out, rules, "batch", "seq", None), (k, v)
     out, new_kv = _attn_core(p, x, cfg, rules, positions=positions, window=window, theta=theta,
                              positions_thw=positions_thw, cache_kv=cache_kv, pos=pos, causal=causal)
@@ -230,12 +247,20 @@ def _decode_positions_thw(cfg, rows: int, pos: int, device) -> "torch.Tensor | N
 
 
 def _attn_core(p, x, cfg, rules, *, positions, window, theta, positions_thw=None, cache_kv=None, pos=None,
-               causal=True):
-    """``apply_attn_block`` up to its output's sharding constraint."""
+               causal=True, q_offset=0, seq_group=None):
+    """``apply_attn_block`` up to its output's sharding constraint.  With
+    ``seq_group`` (a region's body under SP), ``x`` is the chunk of the
+    sequence from ``q_offset`` on: K and V are all-gathered along the
+    sequence over the group and the queries attend from ``q_offset``; the
+    chunk's own K and V are returned."""
     q, k, v = _qkv(p, x, cfg, positions=positions, theta=theta, positions_thw=positions_thw)
     if cache_kv is None:
+        if seq_group is None:
+            k_all, v_all = gather_seq(k, rules), gather_seq(v, rules)
+        else:
+            k_all, v_all = gather_dim(k, 1, seq_group), gather_dim(v, 1, seq_group)
         out = attention(
-            q, gather_seq(k, rules), gather_seq(v, rules), causal=causal, window=window, chunk=cfg.attn_chunk,
+            q, k_all, v_all, causal=causal, window=window, q_offset=q_offset, chunk=cfg.attn_chunk,
             matmul_bf16=cfg.attn_matmul_bf16,
         )
         new_kv = (k, v)
@@ -365,8 +390,10 @@ def _shared_in(w, x, x0, rules):
     mesh = mesh_for(rules)
     if mesh is None:
         return proj(x, x0, w)
-    xs, ws = axes_of(x, mesh), tp_spec(w, rules, mesh)
-    t = region(proj, (x, x0, w), (xs, xs, ws), (Spec(*xs[:2], ws[1]),), mesh=mesh)
+    xs = axes_of(x, mesh)
+    # under SP the tensor axis splits the rows, so the projection is taken whole
+    ws = Spec() if rules.tensor in spec_axes(xs) else tp_spec(w, rules, mesh)
+    t = region(proj, (x, x0, w), (xs, xs, ws), (Spec(*xs[:2], ws[1] if ws else None),), mesh=mesh)
     return shard(t, rules, "batch", "seq", None)
 
 
@@ -433,7 +460,8 @@ def _layers(params, cfg):
 def _embed_in(params, batch, cfg, rules):
     """The token embeddings, the vision embeddings (vlm) written over the
     first positions of each row.  Under a mesh the splice is one region on
-    each rank's rows, the vision embeddings laid out by those rows."""
+    each rank's rows, the vision embeddings laid out by those rows; under
+    SP a rank writes only the vision positions its chunk holds."""
     x = L.embed_tokens(params["embedding"], batch["tokens"], cfg, rules)
     if cfg.embed_scale:
         # the reference's scale rounded to the compute dtype first
@@ -444,14 +472,23 @@ def _embed_in(params, batch, cfg, rules):
         if mesh is None:
             return _splice(x, ve)
         xs = axes_of(x, mesh)
-        return region(_splice, (x, ve), (xs, Spec(xs[0], None, None)), (xs,), mesh=mesh)
+        axes, chunk, _ = seq_split(x, mesh)
+        if not axes:
+            return region(_splice, (x, ve), (xs, Spec(xs[0], None, None)), (xs,), mesh=mesh)
+        lo = chunk * local(x).shape[1]
+        return region(_splice, (x, ve, lo), (xs, Spec(xs[0], None, None), None), (xs,), mesh=mesh)
     return x
 
 
-def _splice(x, ve):
+def _splice(x, ve, lo: int = 0):
     """``ve`` written over the first positions of ``x``: the reference's
-    ``dynamic_update_slice`` at position 0."""
-    return torch.cat([ve.to(x.dtype), x[:, ve.shape[1] :]], dim=1)
+    ``dynamic_update_slice`` at position 0.  ``x`` may be the chunk of the
+    sequence from position ``lo`` on (SP): only the vision positions it
+    holds are written."""
+    end = min(ve.shape[1], lo + x.shape[1])
+    if end <= lo:
+        return x
+    return torch.cat([ve[:, lo:end].to(x.dtype), x[:, end - lo :]], dim=1)
 
 
 def _logits(params, x, cfg, rules):
@@ -466,16 +503,6 @@ def _store(dst: dict, src: dict) -> None:
 
 
 # ==================================================================== forward
-def check_mesh(cfg, rules: AxisRules) -> None:
-    """Raise for what the port does not run over a mesh yet: attention
-    under sequence parallelism (the ssm family, attention-free, takes it)
-    and the dense MoE oracle, each naming its ROADMAP.md item."""
-    if rules.seq and cfg.family != "ssm":
-        unported_on_mesh("attention under sequence parallelism (rules.seq)", rules, "1d")
-    if cfg.is_moe and cfg.moe.dispatch == "dense":
-        unported_on_mesh("MoE's dispatch='dense' (the numerics oracle)", rules, "1d")
-
-
 def remat(fn, cfg, *args):
     """``fn(*args)``, its activations recomputed in the backward when
     ``cfg.remat`` and autograd is recording: the reference's
@@ -490,10 +517,8 @@ def forward(params, batch, cfg: ModelConfig, rules: AxisRules = NO_SHARD):
 
     Each layer's body runs under ``remat``; the hybrid family's shared
     block stays outside it, as in the reference.  Under a mesh every
-    family runs on DTensors (``common.set_mesh``); what ``check_mesh``
-    names raises."""
+    family runs on DTensors (``common.set_mesh``)."""
     check_family(cfg)
-    check_mesh(cfg, rules)
     tokens = batch["tokens"]
     x = x0 = _embed_in(params, batch, cfg, rules)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -581,7 +606,6 @@ def prefill(params, batch, cfg: ModelConfig, rules: AxisRules, cache: dict):
     ``prefill_inscan_cache``.
     """
     check_family(cfg)
-    check_mesh(cfg, rules)
     mesh = mesh_for(rules)
     if mesh is not None:
         with torch.no_grad():
@@ -669,7 +693,6 @@ def _write_prompt_on_mesh(entry, kv, cfg, mesh) -> None:
 def decode_step(params, tokens, cfg: ModelConfig, rules: AxisRules, cache: dict, pos: int):
     """One token for every sequence.  tokens: (B, 1); pos: the position."""
     check_family(cfg)
-    check_mesh(cfg, rules)
     mesh = mesh_for(rules)
     if mesh is not None:
         with torch.no_grad():

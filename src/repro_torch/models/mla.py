@@ -22,13 +22,16 @@ from repro_torch.models.common import (
     Spec,
     axes_of,
     dense_init,
+    gather_dim,
     gather_seq,
+    heads_whole,
     local_rules,
     lse_combine,
     mesh_for,
     put_owned,
     region,
     seq_shard,
+    seq_split,
     shard,
     tp_region,
     tp_spec,
@@ -94,37 +97,53 @@ def mla_attention(p, x, cfg, rules: AxisRules, *, positions, chunk=1024):
     Under a mesh, one region: each rank builds the latent for its batch
     rows (``wdkv``/``wkr`` are not split over the tensor axis, so every
     rank of a tensor group builds the same) and attends over its heads;
-    the output projection's partial sums are reduced by ``shard``.
-    Without autograd recording (prefill) the region also returns the
-    latent, laid out as the output's rows and replicated over the tensor
+    the output projection's partial sums are reduced by ``shard``.  Under
+    ``heads=None`` the weights are taken whole.  Where the sequence is
+    split (SP), each rank builds the latent of its chunk (RoPE at the
+    chunk's global positions), all-gathers ``c`` and ``kr`` along the
+    sequence, expands them to every position's keys and values, and
+    attends its queries from the chunk's start.  Without autograd
+    recording (prefill) the region also returns the chunk's latent, laid
+    out as the output's rows and chunks and replicated over the tensor
     axis; while it records (training), the output alone."""
     mesh = mesh_for(rules)
     if mesh is not None:
         keys = list(p)
         ws = [p[k].to(cfg.dtype) for k in keys]
-        if torch.is_grad_enabled():
-            body = lambda x, *w: _mla_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions, chunk)[0]  # noqa: E731
-            return shard(tp_region(body, x, ws, rules, mesh), rules, "batch", "seq", None), None
+        with_kv = not torch.is_grad_enabled()
+        _, index, group = seq_split(x, mesh)
 
         def body(x, *w):
-            out, latent = _mla_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions, chunk)
-            return (out, *latent)
+            lo = index * x.shape[1]
+            out, latent = _mla_core(dict(zip(keys, w)), x, cfg, local_rules(rules), positions[lo : lo + x.shape[1]],
+                                    chunk, q_offset=lo, seq_group=group)
+            return (out, *latent) if with_kv else out
 
+        whole = heads_whole(rules)
+        if not with_kv:
+            return shard(tp_region(body, x, ws, rules, mesh, whole=whole), rules, "batch", "seq", None), None
         xs = axes_of(x, mesh)
         rows = Spec(xs[0], xs[1], None)
-        out, c, kr = tp_region(body, x, ws, rules, mesh, extra=(rows, rows))
+        out, c, kr = tp_region(body, x, ws, rules, mesh, extra=(rows, rows), whole=whole)
         return shard(out, rules, "batch", "seq", None), (c, kr)
     out, latent = _mla_core(p, x, cfg, rules, positions, chunk)
     return shard(out, rules, "batch", "seq", None), latent
 
 
-def _mla_core(p, x, cfg, rules, positions, chunk):
+def _mla_core(p, x, cfg, rules, positions, chunk, q_offset=0, seq_group=None):
+    """``mla_attention`` on plain tensors; with ``seq_group`` (SP) ``x`` is
+    the chunk from ``q_offset`` on and the latent is gathered along the
+    sequence over the group before it is expanded."""
     qn, qr = _project_q(p, x, cfg, positions)
     c, kr = _latent(p, x, cfg, positions)
-    k, v = _expand(p, c, kr, cfg)
+    if seq_group is None:
+        k, v = _expand(p, c, kr, cfg)
+        k, v = gather_seq(k, rules), gather_seq(v, rules)
+    else:
+        k, v = _expand(p, gather_dim(c, 1, seq_group), gather_dim(kr, 1, seq_group), cfg)
     q = torch.cat([qn, qr], -1)
-    k, v = gather_seq(k, rules), gather_seq(v, rules)
-    out = attention(q, k, v, causal=True, chunk=chunk, scale=_scale(cfg), matmul_bf16=cfg.attn_matmul_bf16)
+    out = attention(q, k, v, causal=True, q_offset=q_offset, chunk=chunk, scale=_scale(cfg),
+                    matmul_bf16=cfg.attn_matmul_bf16)
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(cfg.dtype)), (c, kr)
 
 

@@ -14,7 +14,9 @@ the contiguous (expert, capacity) buffer the grouped FFN wants.
   the expert ids (position minus the expert's first position), as the
   reference takes them from ``jnp.argsort``; outputs are bit-identical to
   ``sorted``.
-* ``dispatch='dense'``: every expert on every token (the numerics oracle).
+* ``dispatch='dense'``: every expert on every token (the numerics oracle);
+  under a mesh one region over the rows, each rank a ``d_ff`` slice of
+  every expert, the slices' partial sums reduced (``_dense_on_mesh``).
 * ``dispatch='shard_map'``: the reference's ``_moe_shard_map``.  Tokens
   never leave their rank: each rank runs the Array Division (K1) on its
   own tokens' assignments with the local capacity ``T_loc·k·cf/E``
@@ -35,6 +37,7 @@ The combine adds each token's k weighted expert outputs in choice order
 
 from __future__ import annotations
 
+import math
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +56,9 @@ from repro_torch.models.common import (
     region,
     replicated,
     shard,
+    spec_axes,
     tp_region,
     tp_spec,
-    unported_on_mesh,
 )
 
 
@@ -116,24 +119,27 @@ def _router(p, x, cfg, rules: AxisRules = NO_SHARD):
     """Top-k routing: probs, expert ids (int32), aux load-balance loss.
 
     Under a mesh one region routes each rank's tokens; the two means of
-    the aux loss are partial sums over the batch axes (each shard's mean
-    over its equal share of the batch), reduced before their product."""
+    the aux loss are partial sums over the batch axes and the axes that
+    split the sequence (each shard's mean over its equal share of the
+    tokens), reduced before their product."""
     m = cfg.moe
     mesh = mesh_for(rules)
     if mesh is None:
         top_p, top_e, token_frac, prob_frac = _route(p, x, cfg)
     else:
-        nb = batch_shards(rules, mesh)
+        from repro_torch.runtime.ranks import mesh_sizes
+
+        spec = axes_of(x, mesh)
+        shards = tuple(rules.batch or ()) + spec_axes(spec[1])
+        n = batch_shards(rules, mesh) * math.prod(mesh_sizes(mesh)[a] for a in spec_axes(spec[1]))
 
         def body(w, x):
             top_p, top_e, tf, pf = _route({"router": w}, x, cfg)
-            return top_p, top_e, tf / nb, pf / nb
+            return top_p, top_e, tf / n, pf / n
 
-        spec = axes_of(x, mesh)
-        batch = tuple(rules.batch or ())
         top_p, top_e, token_frac, prob_frac = region(
             body, (p["router"].to(cfg.dtype), x), (tp_spec(p["router"], rules, mesh), spec),
-            (spec, spec, Spec(), Spec()), partial=[(), (), batch, batch], mesh=mesh)
+            (spec, spec, Spec(), Spec()), partial=[(), (), shards, shards], mesh=mesh)
         token_frac, prob_frac = replicated(token_frac, mesh), replicated(prob_frac, mesh)
     # Switch-style aux loss: E · Σ_e f_e · P_e
     aux = m.num_experts * torch.sum(token_frac * prob_frac) * m.router_aux_loss
@@ -332,14 +338,8 @@ def apply_moe(p, x, cfg, rules: AxisRules):
         raise ValueError(f"unknown dispatch {m.dispatch!r}")
     y = _moe_shard_map(p, x, cfg, rules, top_p, top_e) if m.dispatch == "shard_map" and mesh is not None else None
     if m.dispatch == "dense":
-        if mesh is not None:
-            unported_on_mesh("MoE's dispatch='dense' (the numerics oracle)", rules, "1d")
-        # oracle path: every expert runs on every token
-        gates = (F.one_hot(top_e.long(), m.num_experts).to(torch.float32) * top_p[..., None]).sum(2)
-        h = torch.einsum("bsd,edf->bsef", x, p["wi"].to(cfg.dtype))
-        g = torch.einsum("bsd,edf->bsef", x, p["wg"].to(cfg.dtype))
-        y = torch.einsum("bsef,efd->bsed", F.silu(g) * h, p["wo"].to(cfg.dtype))
-        y = torch.einsum("bsed,bse->bsd", y.to(torch.float32), gates).to(cfg.dtype)
+        y = _dense(p, x, top_p, top_e, cfg) if mesh is None else _dense_on_mesh(p, x, cfg, rules, top_p, top_e, mesh)
+        y = y.to(cfg.dtype)
     elif y is None and mesh is not None:
         y = _sorted_on_mesh(p, x, cfg, rules, top_p, top_e, mesh)
     elif y is None:
@@ -357,6 +357,42 @@ def apply_moe(p, x, cfg, rules: AxisRules):
             y = y + shard(sh, rules, "batch", "seq", None)
     y = shard(y, rules, "batch", "seq", None)
     return y, aux
+
+
+def _dense(w, x, top_p, top_e, cfg):
+    """The oracle: every expert on every token, the outputs weighted by
+    the gates in float32: (B, S, d) float32."""
+    E = cfg.moe.num_experts
+    gates = (F.one_hot(top_e.long(), E).to(torch.float32) * top_p[..., None]).sum(2)
+    h = torch.einsum("bsd,edf->bsef", x, w["wi"].to(cfg.dtype))
+    g = torch.einsum("bsd,edf->bsef", x, w["wg"].to(cfg.dtype))
+    y = torch.einsum("bsef,efd->bsed", F.silu(g) * h, w["wo"].to(cfg.dtype))
+    return torch.einsum("bsed,bse->bsd", y.to(torch.float32), gates)
+
+
+def _dense_on_mesh(p, x, cfg, rules: AxisRules, top_p, top_e, mesh):
+    """The oracle over a mesh: one region over the rows of ``x`` (and their
+    routes), laid out as ``x``.  Each rank holds a ``d_ff`` slice of every
+    expert (``wi``/``wg`` by their last dim, ``wo`` by its middle one,
+    gathered whole first where the experts are split by expert,
+    ``_split_on``), and the output is a partial sum over the tensor axis,
+    which the reference's GSPMD gives its einsums; where the tensor axis
+    splits the rows (SP) the experts are taken whole and nothing is
+    summed.  Returns y float32."""
+    t = rules.tensor
+    xs = axes_of(x, mesh)
+    w = [p[k].to(cfg.dtype) for k in ("wi", "wg", "wo")]
+    if t in spec_axes(xs):
+        specs, partial = [Spec()] * 3, ()
+    else:
+        w = [_split_on(w[0], 2, rules, mesh), _split_on(w[1], 2, rules, mesh), _split_on(w[2], 1, rules, mesh)]
+        specs, partial = [Spec(None, None, t), Spec(None, None, t), Spec(None, t, None)], (t,)
+
+    def body(x, tp_, te_, wi, wg, wo):
+        return _dense({"wi": wi, "wg": wg, "wo": wo}, x, tp_, te_, cfg)
+
+    y = region(body, (x, top_p, top_e, *w), (xs, xs, xs, *specs), (xs,), partial=partial, mesh=mesh)
+    return y.redistribute(mesh, placements(xs, mesh))
 
 
 def _shared(p, x, cfg):

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from repro_torch.models.common import Spec, axes_of, is_dtensor, region, replicated
+from repro_torch.models.common import Spec, axes_of, is_dtensor, region, replicated, spec_axes
 
 
 def _lm_loss(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
@@ -37,7 +37,7 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float = 1e-4)
         return _lm_loss(logits, labels, z_loss)
     mesh = logits.device_mesh
     rows = axes_of(logits, mesh)[:2]
-    axes = [a for e in rows if e is not None for a in ((e,) if isinstance(e, str) else e)]
+    axes = spec_axes(rows)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     nb = math.prod(sizes[a] for a in axes)
 

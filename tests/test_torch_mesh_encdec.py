@@ -264,25 +264,25 @@ def _plant(fault: str, mesh):
     if fault == "cross_kv_other_heads":  # wk and wv rolled by one rank's heads: each rank computes the next's
         original = encdec.tp_region
 
-        def rolled(body, x, weights, rules, mesh, extra=(), inputs=()):
+        def rolled(body, x, weights, rules, mesh, extra=(), inputs=(), **kw):
             if body.__qualname__.startswith("_cross_on_mesh"):
                 weights = list(weights)
                 for i in (1, 2):
                     w = weights[i]
                     whole = torch.roll(common.whole(w), -w.shape[1] // TP, 1)
                     weights[i] = common.distribute(whole, common.axes_of(w, mesh), mesh)
-            return original(body, x, weights, rules, mesh, extra, inputs)
+            return original(body, x, weights, rules, mesh, extra, inputs, **kw)
 
         encdec.tp_region = rolled
         return lambda: setattr(encdec, "tp_region", original)
     if fault == "thw_first_rows":  # every rank rotates by the (t, h, w) ids of the global first rows
         original = lm.tp_region
 
-        def first_rows(body, x, weights, rules, mesh, extra=(), inputs=()):
+        def first_rows(body, x, weights, rules, mesh, extra=(), inputs=(), **kw):
             if inputs:
                 (thw, _), rows = inputs[0], common.local(x).shape[0]
                 inputs = ((common.whole(thw)[:, :rows].contiguous(), Spec()),)
-            return original(body, x, weights, rules, mesh, extra, inputs)
+            return original(body, x, weights, rules, mesh, extra, inputs, **kw)
 
         lm.tp_region = first_rows
         return lambda: setattr(lm, "tp_region", original)

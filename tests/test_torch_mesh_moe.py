@@ -14,9 +14,10 @@ ranks at (2, 2, 2) ``pod/data/model``, against the reference under
   ``argsort``, within 1e-5 of the reference's under its mesh;
 * under a mesh with rules enabled, the encdec and vlm families' forward
   under sequence parallelism (``rules.seq``), and prefill and decode with
-  the ``dense`` MoE oracle, raise ``NotImplementedError`` (the first
-  naming ROADMAP Queue 1 item 1d), and ``shard`` raises on a plain
-  tensor; with the rules disabled ``shard`` is the identity.
+  the ``dense`` MoE oracle, which the port once refused, give the
+  unsharded calls' logits within 1e-5 (``tests/test_torch_mesh_sp.py``
+  holds them to the reference), and ``shard`` raises on a plain tensor;
+  with the rules disabled ``shard`` is the identity.
 
 The reference runs in one subprocess, the port in one spawned group of 8
 ranks, one thread each; float32 compute, the deepseek-v2-lite smoke
@@ -43,6 +44,7 @@ from repro_torch.launch import sharding as SH
 from repro_torch.models import moe
 from repro_torch.models.common import Spec, distribute, set_mesh, shard
 from repro_torch.runtime import ranks
+from test_torch_mesh_serve import serve_gap
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 8, 32
@@ -116,6 +118,25 @@ def _raises(fn, exc) -> bool:
     return False
 
 
+def _forward_gap(cfg, rules, mesh) -> float:
+    """The largest logit gap of ``forward`` on a batch of ``B`` x ``S``
+    tokens with the family's inputs, laid out as a train step takes it,
+    over ``mesh`` under ``rules`` against ``forward`` unsharded, on the
+    port's own weights."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.common import lay_out, whole
+
+    api = registry.get_model_api(cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(0))
+    batch = SyntheticLMData(cfg, B, S, seed=0).next_batch()
+    bspecs = SH.sanitize_specs(SH.batch_specs(cfg, ShapeConfig("t", S, B, "train"), rules), batch, mesh)
+    with torch.no_grad():
+        want, _ = api.forward(params, batch, cfg)
+        got, _ = api.forward(lay_out(params, SH.param_layout(cfg, rules, mesh, params), mesh),
+                             lay_out(batch, bspecs, mesh), cfg, rules)
+    return float((whole(got) - want).abs().max())
+
+
 def _rank_moe(mesh, inp, want):
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
     base = _cfg()
@@ -151,26 +172,16 @@ def _rank_moe(mesh, inp, want):
             cfg = _cfg(dispatch=dispatch, dispatch_sharded=sharded, expert_parallel=ep)
             y, aux = moe.apply_moe(p, x, cfg, rules)
             res[name] = {"y": y.full_tensor().numpy(), "aux": float(aux.full_tensor())}
-        tokens = distribute(torch.zeros((B, S), dtype=torch.int64), Spec(rules.batch, None), mesh)
-        raised = {}
-        seq = dataclasses.replace(rules, seq="model")  # both families run over a mesh; their attention under SP does not
+        ran = {}
+        seq = dataclasses.replace(rules, seq="model")  # attention under SP on both families
         for arch in ("whisper-tiny", "qwen2-vl-7b"):
-            c = registry.get_config(arch, smoke=True)
-            try:
-                registry.get_model_api(c).forward({}, {"tokens": tokens}, c, seq)
-            except NotImplementedError as e:
-                raised[arch] = "Queue 1 item 1d" in str(e)
-            else:
-                raised[arch] = False
-        api = registry.get_model_api(base)
-        dense = _cfg(dispatch="dense")  # serving runs over a mesh; its dense MoE oracle does not
-        raised["prefill"] = _raises(lambda: api.prefill({}, {"tokens": tokens}, dense, rules, {}), NotImplementedError)
-        raised["decode"] = _raises(lambda: api.decode_step({}, tokens, dense, rules, {}, 0), NotImplementedError)
-        raised["plain_at_shard"] = _raises(lambda: shard(torch.zeros(B, S, 64), rules, "batch", "seq", None),
-                                           TypeError)
+            ran[arch] = _forward_gap(registry.get_config(arch, smoke=True).replace(dtype=torch.float32), seq, mesh)
+        gaps = serve_gap(_cfg(dispatch="dense"), rules, mesh)  # the dense MoE oracle
+        ran["prefill"], ran["decode"] = gaps["prefill"], gaps["decode_step"]
+        res["ran"] = ran
         plain = torch.zeros(B, S, 64)
-        raised["disabled_is_identity"] = shard(plain, dataclasses.replace(rules, enabled=False), "batch") is plain
-        res["raised"] = raised
+        res["plain_at_shard"] = _raises(lambda: shard(plain, rules, "batch", "seq", None), TypeError)
+        res["disabled_is_identity"] = shard(plain, dataclasses.replace(rules, enabled=False), "batch") is plain
     return res
 
 
@@ -217,8 +228,15 @@ def test_pjit_dispatch_matches_the_reference(name, runs):
         assert abs(res[name]["aux"] - want[name]["aux"]) <= 1e-6
 
 
-@pytest.mark.parametrize("what", ["whisper-tiny", "qwen2-vl-7b", "prefill", "decode",
-                                  "plain_at_shard", "disabled_is_identity"])
-def test_unported_paths_raise_under_a_mesh(what, runs):
+@pytest.mark.parametrize("what", ["whisper-tiny", "qwen2-vl-7b", "prefill", "decode"])
+def test_once_refused_paths_run_as_unsharded(what, runs):
+    """The encdec and vlm forward under ``seq="model"`` and the dense MoE
+    oracle's prefill and decode step, once refused over a mesh."""
     _, mine = runs
-    assert all(res["raised"][what] for res in mine)
+    assert all(res["ran"][what] <= 1e-5 for res in mine), [res["ran"] for res in mine]
+
+
+@pytest.mark.parametrize("what", ["plain_at_shard", "disabled_is_identity"])
+def test_shard_raises_on_a_plain_tensor_and_is_the_identity_when_disabled(what, runs):
+    _, mine = runs
+    assert all(res[what] for res in mine)

@@ -29,10 +29,11 @@ prompts drawn with numpy from a seed, float32 compute.  Cases:
 Each holds the last-position logits and every cache leaf (gathered) within
 1e-4 of the reference's (``tests/test_torch_models.py``'s tolerance), the
 greedy tokens equal, and every cache leaf laid out as
-``launch.sharding.named(cache_specs)``.  Under a mesh the paths not
-ported (attention under ``rules.seq``, on the dense, encdec and vlm
-families alike, and the dense MoE oracle) raise, naming their ROADMAP
-items.
+``launch.sharding.named(cache_specs)``.  The paths the port once refused
+over a mesh (attention under ``rules.seq``, on the dense, encdec and vlm
+families alike, and the dense MoE oracle) serve a prefill and a decode
+step with the unsharded calls' logits (``tests/test_torch_mesh_sp.py``
+holds them to the reference).
 
 The reference's unsharded pieces (init, the kv_seq cases' prefill) run in
 this process; its sharded runs in one subprocess, which compiles them
@@ -62,7 +63,7 @@ from repro_torch.launch import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import synthetic_requests
 from repro_torch.models import common, lm, mla
-from repro_torch.models.common import AxisRules, lay_out, set_mesh, tree_leaves, tree_map
+from repro_torch.models.common import lay_out, set_mesh, tree_leaves, tree_map
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime import ranks
 from repro_torch.serve import ServeEngine
@@ -80,9 +81,11 @@ CASES = {
     "deepseek_kv_seq": ("deepseek-v2-lite-16b", "shard_map", 1, 40, 64, True),
 }
 ENGINE = ("deepseek-v2-lite-16b", "shard_map", 8, 4, 64)  # arch, dispatch, requests, new tokens, max_len
-# what still raises under a mesh → the ROADMAP item its message names
-# (whisper-tiny and qwen2-vl-7b serve over a mesh; their attention under rules.seq does not)
-UNPORTED = {"whisper-tiny": "1d", "qwen2-vl-7b": "1d", "rules.seq": "1d", "dispatch=dense": "1d"}
+# paths the port once refused under a mesh → (arch, dispatch, a hand-made seq="model" rule): attention under
+# sequence parallelism on the encdec, vlm and dense families, and the dense MoE oracle; each is held to the
+# reference in tests/test_torch_mesh_sp.py and here to the port's unsharded calls
+ONCE_REFUSED = {"whisper-tiny": ("whisper-tiny", None, True), "qwen2-vl-7b": ("qwen2-vl-7b", None, True),
+                "rules.seq": ("minitron-4b", None, True), "dispatch=dense": ("deepseek-v2-lite-16b", "dense", False)}
 
 REFERENCE = r"""
 import os, sys, pickle, dataclasses, time
@@ -189,27 +192,36 @@ def _laid_out(cache, cspecs, mesh) -> bool:
     return all(common.is_dtensor(t) and tuple(t.placements) == pl for t, pl in zip(tree_leaves(cache), want))
 
 
-def _raised(fn) -> str:
-    try:
-        fn()
-    except NotImplementedError as e:
-        return str(e)
-    return ""
+def serve_gap(cfg, rules, mesh, B: int = 8, S: int = 8, seed: int = 0) -> dict:
+    """The largest logit gap of a prefill of ``S`` tokens (with the
+    family's inputs) and of one decode step over ``mesh`` under ``rules``
+    against the same calls unsharded, on the port's own weights drawn from
+    ``seed``: ``{"prefill": gap, "decode_step": gap}`` on every rank."""
+    from repro_torch.data.pipeline import SyntheticLMData
+
+    api = registry.get_model_api(cfg)
+    params = api.init(cfg, torch.Generator().manual_seed(seed))
+    batch = {k: v for k, v in SyntheticLMData(cfg, B, S, seed=seed).next_batch().items() if k != "labels"}
+    with torch.no_grad():
+        want, wcache = api.prefill(params, batch, cfg, common.NO_SHARD, api.init_cache(cfg, B, 2 * S, device="cpu"))
+        got, gcache = api.prefill(params, batch, cfg, rules, api.init_cache(cfg, B, 2 * S, device="cpu"))
+        out = {"prefill": float((got - want).abs().max())}
+        tok = torch.argmax(want, -1)[:, None]
+        want, _ = api.decode_step(params, tok, cfg, common.NO_SHARD, wcache, S)
+        got, _ = api.decode_step(params, tok, cfg, rules, gcache, S)
+    out["decode_step"] = float((got - want).abs().max())
+    return out
 
 
-def _unported(mesh) -> dict:
-    """The message each refused path raises with, for prefill and decode."""
+def _once_refused(mesh) -> dict:
+    """Each once-refused path's gaps to the unsharded calls, by (path,
+    prefill or decode_step)."""
     out = {}
-    tokens = common.distribute(torch.zeros((8, 4), dtype=torch.int64), common.Spec(("pod", "data"), None), mesh)
-    for what in UNPORTED:
-        arch = {"rules.seq": "minitron-4b", "dispatch=dense": "deepseek-v2-lite-16b"}.get(what, what)
-        cfg = config(arch, "dense" if what == "dispatch=dense" else None)
-        rules = SH.rules_for(cfg, ShapeConfig("p", 4, 8, "prefill"), mesh)
-        if what != "dispatch=dense":
-            rules = dataclasses.replace(rules, seq="model")
-        api = registry.get_model_api(cfg)
-        out[what, "prefill"] = _raised(lambda: api.prefill({}, {"tokens": tokens}, cfg, rules, {}))
-        out[what, "decode_step"] = _raised(lambda: api.decode_step({}, tokens, cfg, rules, {}, 4))
+    for what, (arch, dispatch, seq) in ONCE_REFUSED.items():
+        cfg = config(arch, dispatch)
+        rules = SH.rules_for(cfg, ShapeConfig("p", 8, 8, "prefill"), mesh)
+        gaps = serve_gap(cfg, dataclasses.replace(rules, seq="model") if seq else rules, mesh)
+        out.update({(what, fn): g for fn, g in gaps.items()})
     return out
 
 
@@ -291,7 +303,7 @@ def _rank_serve(mesh, plan, inputs_path):
         eng = ServeEngine(cfg, params_from_numpy(inp["params"][arch], "cpu"), lm, rules=rules, max_len=max_len,
                           device="cpu")
         res["engine"] = eng.generate(reqs)
-        res["unported"] = _unported(mesh)
+        res["once_refused"] = _once_refused(mesh)
     return res
 
 
@@ -449,16 +461,11 @@ def test_serve_engine_over_the_mesh_matches_the_reference_and_unsharded(runs):
 
 
 @pytest.mark.parametrize("fn", ["prefill", "decode_step"])
-@pytest.mark.parametrize("what", list(UNPORTED))
-def test_unported_paths_raise_naming_their_item(what, fn, runs):
+@pytest.mark.parametrize("what", list(ONCE_REFUSED))
+def test_once_refused_paths_serve_as_unsharded(what, fn, runs):
+    """Attention under a hand-made ``seq="model"`` rule (the encdec, vlm
+    and dense families) and the dense MoE oracle, which the port once
+    refused over a mesh, give the unsharded call's logits on every rank."""
     _, _, mine = runs
     for res in mine:
-        msg = res["unported"][what, fn]
-        assert f"Queue 1 item {UNPORTED[what]}" in msg, msg
-
-
-def test_no_mesh_means_no_refusal():
-    """Without an ambient mesh the rules ride along and nothing raises."""
-    rules = AxisRules(seq="model")
-    assert common.mesh_for(rules) is None
-    common.unported_on_mesh("anything", rules, "1d")
+        assert res["once_refused"][what, fn] <= TOL, res["once_refused"]

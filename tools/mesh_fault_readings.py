@@ -2,7 +2,7 @@
 in their ranks, on one CUDA card: the readings that their limits are set
 between.
 
-    python3 tools/mesh_fault_readings.py [--path train|serve|ssm|encdec] [--faults a,b,...]
+    python3 tools/mesh_fault_readings.py [--path train|serve|ssm|encdec|sp] [--faults a,b,...]
 
 ``--path train`` (the default) is phase 15 (b): the unsharded reference
 runs once (the 2-layer DeepSeek-V2-Lite's two steps on one batch), then 4
@@ -15,8 +15,15 @@ cut mamba2-370m and Zamba2-2.7B, each run held to the same model
 unsharded on the card.  ``--path encdec`` is phase 18 (b) and (c): the
 ranks train and serve whisper-tiny (its batch-1 ``kv_seq`` request
 included) and train qwen2-vl-7b and prefill its vision batch, each run
-held to the same model unsharded on the card.  A fault is patched into every rank's modules
-before its model is built; the code on disk is not changed:
+held to the same model unsharded on the card.  ``--path sp`` is phase
+19 (b): the ranks train and serve whisper-tiny and train gemma3-4b under
+sequence parallelism, each run held to the same model unsharded on the
+card; phase 19 runs no vision tokens under SP, so the sound run and the
+vision splice's fault also prefill qwen2-vl-7b (2 of 28 layers, 2 x
+1,280 tokens, 1,024 vision tokens a row) under the production mesh's SP
+rules, against the unsharded prefill.  A fault is patched into every
+rank's modules before its model is built; the code on disk is not
+changed:
 
 * ``tensor_allreduce`` (train): the ``shard_map`` MoE dispatch's
   all-reduce over the tensor axis skipped (each rank's ``d_ff`` slice
@@ -48,13 +55,22 @@ before its model is built; the code on disk is not changed:
 * ``thw_first_rows`` (encdec): every rank rotating by the M-RoPE
   positions of the global first rows, not its own;
 * ``splice_first_rows`` (encdec): every rank splicing the vision
-  embeddings of the global first rows over its own rows.
+  embeddings of the global first rows over its own rows;
+* ``q_offset_zero`` (sp): each rank's queries attending as if its chunk
+  started the sequence (``q_offset`` 0 against the gathered keys);
+* ``kv_not_gathered`` (sp): each rank attending over its own chunk's keys
+  and values, not gathered along the sequence;
+* ``positions_not_offset`` (sp): RoPE and whisper's sinusoid taken from
+  position 0 on every rank's chunk;
+* ``splice_on_every_rank`` (sp): every rank writing the vision
+  embeddings from position 0 over its own chunk.
 
 Prints the card's name and power limit, then one JSON line a run: the
 gaps the phase reads, whether each passes its limits
 (``chip_smoke.MESH_FOUR_GAP``, ``chip_smoke.MESH_SERVE_GAP``,
 ``chip_smoke.MESH_SSM_GAP`` and ``MESH_SSM_SERVE_GAP``,
-``chip_smoke.MESH_ENCDEC_GAP`` and ``MESH_ENCDEC_SERVE_GAP``), whether the
+``chip_smoke.MESH_ENCDEC_GAP`` and ``MESH_ENCDEC_SERVE_GAP``,
+``chip_smoke.MESH_SP_GAP`` and ``MESH_SP_SERVE_GAP``), whether the
 ranks agree, and the readings behind them.  A run whose ranks raise is
 reported as such.
 """
@@ -182,14 +198,14 @@ def _encdec_cross_kv_other_heads() -> None:
 
     tp_region, tp = encdec.tp_region, chip_smoke.MESH_FOUR[2]
 
-    def rolled(body, x, weights, rules, mesh, extra=(), inputs=()):
+    def rolled(body, x, weights, rules, mesh, extra=(), inputs=(), **kw):
         if body.__qualname__.startswith("_cross_on_mesh"):
             weights = list(weights)
             for i in (1, 2):  # wk, wv
                 w = weights[i]
                 whole = torch.roll(common.whole(w), -(w.shape[1] // tp), 1)
                 weights[i] = common.distribute(whole, common.axes_of(w, mesh), mesh)
-        return tp_region(body, x, weights, rules, mesh, extra, inputs)
+        return tp_region(body, x, weights, rules, mesh, extra, inputs, **kw)
 
     encdec.tp_region = rolled
 
@@ -205,11 +221,11 @@ def _encdec_thw_first_rows() -> None:
 
     tp_region = lm.tp_region
 
-    def first_rows(body, x, weights, rules, mesh, extra=(), inputs=()):
+    def first_rows(body, x, weights, rules, mesh, extra=(), inputs=(), **kw):
         if inputs:  # M-RoPE's positions: the global first rows, as many as the rank's own
             (thw, _), rows = inputs[0], common.local(x).shape[0]
             inputs = ((common.whole(thw)[:, :rows].contiguous(), common.Spec()),)
-        return tp_region(body, x, weights, rules, mesh, extra, inputs)
+        return tp_region(body, x, weights, rules, mesh, extra, inputs, **kw)
 
     lm.tp_region = first_rows
 
@@ -228,6 +244,53 @@ def _encdec_splice_first_rows() -> None:
     lm.region = first_splice
 
 
+def _sp_q_offset_zero() -> None:
+    from repro_torch.models import lm, mla
+
+    for mod in (lm, mla):
+        attention = mod.attention
+
+        def at_zero(q, k, v, attention=attention, **kw):
+            if k.shape[1] > q.shape[1] and kw.get("kv_len") is None and kw.get("k_positions") is None:
+                kw["q_offset"] = 0
+            return attention(q, k, v, **kw)
+
+        mod.attention = at_zero
+
+
+def _sp_kv_not_gathered() -> None:
+    from repro_torch.models import lm, mla
+
+    lm.gather_dim = mla.gather_dim = lambda x, dim, group: x
+
+
+def _sp_positions_not_offset() -> None:
+    from repro_torch.models import encdec, lm
+
+    attn_core, seq_split = lm._attn_core, encdec.seq_split
+
+    def from_zero(*a, **kw):
+        if kw.get("seq_group") is not None and kw.get("positions") is not None:
+            kw["positions"] = kw["positions"] - kw["q_offset"]
+        return attn_core(*a, **kw)
+
+    lm._attn_core = from_zero
+    encdec.seq_split = lambda x, mesh: (*seq_split(x, mesh)[:1], 0, seq_split(x, mesh)[2])
+
+
+def _sp_splice_on_every_rank() -> None:
+    from repro_torch.models import lm
+
+    region = lm.region
+
+    def from_zero(fn, args, in_specs, out_specs, **kw):
+        if fn is lm._splice and len(args) == 3:
+            args = (*args[:2], 0)
+        return region(fn, args, in_specs, out_specs, **kw)
+
+    lm.region = from_zero
+
+
 FAULTS = {"tensor_allreduce": _skip_tensor_allreduce, "norm_per_rank": _norm_per_rank,
           "global_capacity": _global_capacity}
 SERVE_FAULTS = {"attn_allreduce": _skip_attn_allreduce, "kv_seq_every_shard": _kv_seq_every_shard,
@@ -237,7 +300,10 @@ SSM_FAULTS = {"norm_own_channels": _ssm_norm_own_channels, "bc_contiguous": _ssm
 ENCDEC_FAULTS = {"cross_kv_other_heads": _encdec_cross_kv_other_heads,
                  "kv_seq_without_combine": _encdec_kv_seq_without_combine,
                  "thw_first_rows": _encdec_thw_first_rows, "splice_first_rows": _encdec_splice_first_rows}
-PATHS = {"train": FAULTS, "serve": SERVE_FAULTS, "ssm": SSM_FAULTS, "encdec": ENCDEC_FAULTS}
+SP_FAULTS = {"q_offset_zero": _sp_q_offset_zero, "kv_not_gathered": _sp_kv_not_gathered,
+             "positions_not_offset": _sp_positions_not_offset, "splice_on_every_rank": _sp_splice_on_every_rank}
+SP_VISION = ("qwen2-vl-7b", 2, 2, 1280)  # (arch, layers, batch, sequence) of the vision prefill under SP
+PATHS = {"train": FAULTS, "serve": SERVE_FAULTS, "ssm": SSM_FAULTS, "encdec": ENCDEC_FAULTS, "sp": SP_FAULTS}
 
 
 def faulty_rank(mesh, fault):
@@ -262,6 +328,66 @@ def faulty_encdec_rank(mesh, fault):
     if fault is not None:
         ENCDEC_FAULTS[fault]()
     return chip_smoke.mesh_encdec_four_ranks(mesh)
+
+
+def sp_vision_model():
+    """The vision prefill's config and batch (``SP_VISION``), each row on
+    its own M-RoPE grid."""
+    arch, n_layers, B, S = SP_VISION
+    cfg = chip_smoke.registry.get_config(arch).replace(num_layers=n_layers)
+    batch = chip_smoke.SyntheticLMData(cfg, B, S, seed=0, device=chip_smoke.DEV).next_batch()
+    return cfg, chip_smoke.vision_rows(cfg, batch)
+
+
+def faulty_sp_rank(mesh, fault, phase: bool, vision: bool):
+    if fault is not None:
+        SP_FAULTS[fault]()
+    out = chip_smoke.mesh_sp_four_ranks(mesh) if phase else {}
+    if vision:
+        cfg, batch = sp_vision_model()
+        params = chip_smoke.lm.init(cfg, torch.Generator(device=chip_smoke.DEV).manual_seed(0))
+        B, S = batch["tokens"].shape
+        rules = chip_smoke.sp_rules(cfg, chip_smoke.ShapeConfig("prefill", S, B, "prefill"), mesh, serve=True)
+        params = chip_smoke.lay_out(params, chip_smoke.sharding.param_layout(cfg, rules, mesh, params), mesh)
+        out["vision"] = chip_smoke.mesh_vision_serve(mesh, cfg, params, batch, 1, prefill_rules=rules)
+    return out
+
+
+def sp_readings(faults: list) -> None:
+    """Phase 19 (b) sound and under each SP fault but the splice's (phase
+    19 runs no vision tokens): each arch's training gaps and whisper-tiny's
+    serving gaps against the same model unsharded on the card; the sound
+    run and the splice's fault also prefill qwen2-vl-7b's vision batch
+    under SP and read its gaps against the unsharded model."""
+    limits = {"train": chip_smoke.MESH_SP_GAP, "serve": chip_smoke.MESH_SP_SERVE_GAP}
+    for fault in [None, *faults]:
+        row = {"fault": fault or "none"}
+        phase, vision = fault != "splice_on_every_rank", fault in (None, "splice_on_every_rank")
+        try:
+            out = ranks.run_ranks(faulty_sp_rank, chip_smoke.MESH_SP_FOUR, chip_smoke.MESH_NAMES, backend="gloo",
+                                  device="cuda", args=(fault, phase, vision))
+        except Exception as e:  # a rank raised: the fault stopped the run
+            row["raised"] = f"{type(e).__name__}: {str(e)[-600:]}"
+        else:
+            if phase:
+                for arch, got in chip_smoke.mesh_sp_readings(out).items():
+                    got.pop("ref_train")
+                    past = {k: not v <= limits["train"][arch][k] for k, v in got["train"].items()}
+                    if "b" in got:
+                        past["b"] = [k for k, lim in limits["serve"].items() if not got["b"][k] <= lim]
+                    row[arch] = {"readings": got, "past_limit": past}
+            if vision:
+                cfg, batch = sp_vision_model()
+                params = chip_smoke.lm.init(cfg, torch.Generator(device=chip_smoke.DEV).manual_seed(0))
+                log = out[0]["vision"]["log"]
+                inputs = {k: batch[k] for k in ("vision_embeds", "positions_thw")}
+                tf = chip_smoke.teacher_forced(cfg, params, log, batch["tokens"].shape[1] + 1, inputs=inputs)
+                gap = chip_smoke.logit_gaps(log, tf)
+                row["vision"] = {"gap": gap, "rules": out[0]["vision"]["prefill_rules"],
+                                 "past_limit": [k for k, lim in limits["serve"].items() if not gap[k] <= lim]}
+                del params, batch
+                torch.cuda.empty_cache()
+        print(json.dumps(row), flush=True)
 
 
 def encdec_readings(faults: list) -> None:
@@ -358,6 +484,9 @@ def main() -> None:
         return
     if args.path == "encdec":
         encdec_readings(faults)
+        return
+    if args.path == "sp":
+        sp_readings(faults)
         return
     cfg, run, batch = chip_smoke.mesh_four_model()
     ref = chip_smoke.unsharded_steps(cfg, run, [batch] * chip_smoke.MESH_FOUR_STEPS)
