@@ -1,0 +1,7 @@
+"""Share of the traced requests' wall time in which no device operation ran."""
+
+from cardbench.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
