@@ -69,7 +69,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch import dtypes
+from repro_torch import dtypes, tracing
 from repro_torch.core import partition, pytree, workloads
 from repro_torch.core.dist_sort import dist_sort_keys
 from repro_torch.core.ohhc_sort import ohhc_sort_host
@@ -977,28 +977,30 @@ class SortEngine:
     # -------------------------------------------------------------- planning
     def stats(self, x) -> InputStats:
         B = min(self.topo.total_procs, _MAX_STAT_BUCKETS)
-        return estimate_stats(x, num_buckets=B, sample_size=self.sample_size)
+        with tracing.span("engine.stats"):
+            return estimate_stats(x, num_buckets=B, sample_size=self.sample_size)
 
     def plan(self, x, stats: InputStats | None = None) -> SortPlan:
-        stats = stats if stats is not None else self.stats(x)
-        plan = choose_plan(
-            stats,
-            self.topo,
-            mesh_devices=self.mesh.size() if self.mesh is not None else 1,
-            mesh_axes=self.axis_names if self.mesh is not None else (),
-            host_threshold=self.host_threshold,
-            margin=self.margin,
-        )
-        if plan.path == "dist":
-            plan = dataclasses.replace(
-                plan,
-                comm_sim_s=self.comm_cost_estimate(
-                    stats.n, itemsize=np.dtype(stats.dtype).itemsize
-                ),
+        with tracing.span("engine.plan"):
+            stats = stats if stats is not None else self.stats(x)
+            plan = choose_plan(
+                stats,
+                self.topo,
+                mesh_devices=self.mesh.size() if self.mesh is not None else 1,
+                mesh_axes=self.axis_names if self.mesh is not None else (),
+                host_threshold=self.host_threshold,
+                margin=self.margin,
             )
-        return self._apply_fault(
-            plan, n=stats.n, itemsize=np.dtype(stats.dtype).itemsize
-        )
+            if plan.path == "dist":
+                plan = dataclasses.replace(
+                    plan,
+                    comm_sim_s=self.comm_cost_estimate(
+                        stats.n, itemsize=np.dtype(stats.dtype).itemsize
+                    ),
+                )
+            return self._apply_fault(
+                plan, n=stats.n, itemsize=np.dtype(stats.dtype).itemsize
+            )
 
     # -------------------------------------------------------- executor cache
     def _get_sim_fn(self, padded_n: int, capacity: int, method: str, dtype, batched: bool):
@@ -1049,61 +1051,77 @@ class SortEngine:
         same dtype.  Keys must be NaN-free: NaN poisons the min/max splitter
         computation, as in every range-partitioning sort of the reference.
         """
-        if isinstance(x, torch.Tensor):
-            x = x.detach().cpu().numpy()
-        x_np = np.asarray(x).ravel()
-        n = x_np.size
-        if n <= 1:
-            self.last_report = {"plan": None, "n": n, "overflow_retries": 0}
-            return x_np.copy()
-        stats = None
-        if plan is None:
-            stats = self.stats(x_np)
-            plan = self.plan(x_np, stats)  # fault ladder applied inside
-        else:
-            # Forced plans go through the same ladder: an impossible
-            # scenario rewrites even an explicit sim or dist plan onto the
-            # healthy host path (DESIGN.md §11).
-            plan = self._apply_fault(plan, n=n, itemsize=x_np.dtype.itemsize)
-        if plan.path == "host":
-            r = ohhc_sort_host(x_np, self.topo, method=plan.method)
-            self.last_report = {
-                "plan": plan, "n": n, "stats": stats, "overflow_retries": 0,
-                "counts_sum": int(r.bucket_sizes.sum()),
-                "counts": np.asarray(r.bucket_sizes),
-            }
-            return r.sorted_array
-        if plan.path == "dist":
-            return self._sort_dist(x_np, plan, stats)
-        return self._sort_sim(x_np, plan, stats)
+        with tracing.span("engine.sort"):
+            if isinstance(x, torch.Tensor):
+                x = x.detach().cpu().numpy()
+            x_np = np.asarray(x).ravel()
+            n = x_np.size
+            if n <= 1:
+                self.last_report = {"plan": None, "n": n, "overflow_retries": 0}
+                return x_np.copy()
+            stats = None
+            if plan is None:
+                stats = self.stats(x_np)
+                plan = self.plan(x_np, stats)  # fault ladder applied inside
+            else:
+                # Forced plans go through the same ladder: an impossible
+                # scenario rewrites even an explicit sim or dist plan onto the
+                # healthy host path (DESIGN.md §11).
+                plan = self._apply_fault(plan, n=n, itemsize=x_np.dtype.itemsize)
+            if plan.path == "host":
+                r = ohhc_sort_host(x_np, self.topo, method=plan.method)
+                self.last_report = {
+                    "plan": plan, "n": n, "stats": stats, "overflow_retries": 0,
+                    "counts_sum": int(r.bucket_sizes.sum()),
+                    "counts": np.asarray(r.bucket_sizes),
+                }
+                return r.sorted_array
+            if plan.path == "dist":
+                return self._sort_dist(x_np, plan, stats)
+            return self._sort_sim(x_np, plan, stats)
 
     def _sort_sim(self, x_np: np.ndarray, plan: SortPlan, stats) -> np.ndarray:
         n = x_np.size
         padded_n = plan.padded_n or ops.bucketed_length(n)
         capacity = plan.capacity or partition.default_capacity(padded_n, self.topo.total_procs)
-        x_pad = np.zeros(padded_n, dtypes.key_dtype(x_np.dtype))
-        x_pad[:n] = dtypes.to_keys(x_np)
-        xt = torch.from_numpy(x_pad).to(self.device)
-        retries = 0
-        while True:
-            fn = self._get_sim_fn(padded_n, capacity, plan.method, x_np.dtype, False)
-            out, counts = fn(xt[None], np.array([n]))
-            got = int(counts.sum())
-            if got == n:
-                break
-            # Measured-model miss: escalate capacity (×2, cap at padded_n —
-            # which by construction cannot overflow) and re-run.
-            if capacity >= padded_n:
-                raise AssertionError("overflow with capacity == padded_n")
-            capacity = min(padded_n, capacity * 2)
-            capacity += (-capacity) % 8
-            retries += 1
+        with tracing.span("engine.stage"):
+            x_pad = np.zeros(padded_n, dtypes.key_dtype(x_np.dtype))
+            keys = dtypes.to_keys(x_np)
+            x_pad[:n] = keys
+            tracing.count("engine.host_alloc_bytes", x_pad.nbytes)
+            if keys is not x_np:  # unsigned keys: the map makes a new array
+                tracing.count("engine.host_alloc_bytes", keys.nbytes)
+        with tracing.span("engine.h2d"):
+            xt = torch.from_numpy(x_pad).to(self.device)
+        with tracing.span("engine.device_sort"):
+            retries = 0
+            while True:
+                fn = self._get_sim_fn(padded_n, capacity, plan.method, x_np.dtype, False)
+                out, counts = fn(xt[None], np.array([n]))
+                got = int(counts.sum())
+                if got == n:
+                    break
+                # Measured-model miss: escalate capacity (×2, cap at padded_n —
+                # which by construction cannot overflow) and re-run.
+                if capacity >= padded_n:
+                    raise AssertionError("overflow with capacity == padded_n")
+                capacity = min(padded_n, capacity * 2)
+                capacity += (-capacity) % 8
+                retries += 1
+        with tracing.span("engine.d2h"):
+            answer = out[0, :n].cpu().numpy()
+            counts_np = counts[0].cpu().numpy()
+            tracing.count("engine.host_alloc_bytes", answer.nbytes)
         self.last_report = {
             "plan": plan, "n": n, "stats": stats, "capacity_used": capacity,
             "counts_sum": got, "overflow_retries": retries,
-            "counts": counts[0].cpu().numpy(),
+            "counts": counts_np,
         }
-        return dtypes.to_numpy(out[0, :n], x_np.dtype)
+        with tracing.span("engine.unmap"):
+            y = dtypes.from_keys(answer, x_np.dtype)
+            if y is not answer:  # unsigned keys: the map back makes a new array
+                tracing.count("engine.host_alloc_bytes", y.nbytes)
+        return y
 
     # --------------------------------------------------------------- batched
     def plan_segments(self, keys, seg_lens) -> SortPlan:

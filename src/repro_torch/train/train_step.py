@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.common import (
     NO_SHARD,
@@ -87,14 +88,17 @@ def make_grad_fn(cfg: ModelConfig, run: RunConfig, model_api, rules: AxisRules =
 
     def one(params, batch):
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        dev = live[0].device
         with torch.enable_grad():
-            logits, aux = model_api.forward(tree_unflatten(params, live), batch, cfg, rules)
-            loss, metrics = lm_loss(logits, batch["labels"])
-            total = loss + aux
-            del logits
-            grads = torch.autograd.grad(total, live, allow_unused=True, materialize_grads=True)
-        return (total.detach(), {k: v.detach() for k, v in metrics.items()}, aux.detach(),
-                constrain(params, list(grads)))
+            with tracing.span("train.forward", device=dev):
+                logits, aux = model_api.forward(tree_unflatten(params, live), batch, cfg, rules)
+                loss, metrics = lm_loss(logits, batch["labels"])
+                total = loss + aux
+                del logits
+            with tracing.span("train.backward", device=dev):
+                grads = torch.autograd.grad(total, live, allow_unused=True, materialize_grads=True)
+                grads = constrain(params, list(grads))
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}, aux.detach(), grads
 
     def grads(params, batch):
         A = run.grad_accum
@@ -139,20 +143,22 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, model_api, rules: AxisRule
     grad_fn = make_grad_fn(cfg, run, model_api, rules, grad_specs)
 
     def train_step(state, batch):
-        loss, metrics, aux, grads = grad_fn(state["params"], batch)
-        grads = tree_unflatten(state["params"], grads)
-        if run.grad_compression == "int8":
-            grads, state["error_fb"] = compress_grads(grads, state["error_fb"])
         step = local(state["step"])
-        lr = cosine_warmup(step, peak_lr=run.learning_rate, warmup=run.warmup_steps, total=run.total_steps)
-        if run.master_weights:
-            opt_metrics = adamw_update(state["opt"]["master"], grads, state["opt"], lr, opt_cfg)
-            with torch.no_grad():
-                for p, m in zip(tree_leaves(state["params"]), tree_leaves(state["opt"]["master"])):
-                    local(p).copy_(local(m))
-        else:
-            opt_metrics = adamw_update(state["params"], grads, state["opt"], lr, opt_cfg)
-        step += 1
+        with tracing.span("train.step"):
+            loss, metrics, aux, grads = grad_fn(state["params"], batch)
+            with tracing.span("train.optimizer", device=step.device):
+                grads = tree_unflatten(state["params"], grads)
+                if run.grad_compression == "int8":
+                    grads, state["error_fb"] = compress_grads(grads, state["error_fb"])
+                lr = cosine_warmup(step, peak_lr=run.learning_rate, warmup=run.warmup_steps, total=run.total_steps)
+                if run.master_weights:
+                    opt_metrics = adamw_update(state["opt"]["master"], grads, state["opt"], lr, opt_cfg)
+                    with torch.no_grad():
+                        for p, m in zip(tree_leaves(state["params"]), tree_leaves(state["opt"]["master"])):
+                            local(p).copy_(local(m))
+                else:
+                    opt_metrics = adamw_update(state["params"], grads, state["opt"], lr, opt_cfg)
+                step += 1
         return state, {"loss": loss, "aux": aux, "lr": lr, **metrics, **opt_metrics}
 
     return train_step

@@ -708,3 +708,40 @@ def test_cuda_kernels_suite_smoke_runs_on_the_card(cuda_device):
         assert 0 < r.pct_of_roofline <= 105.0, r
     assert counts["sort_tile"] > 0 and counts["batched_row_sort"] > 0
     assert counts["batched_row_sort_pairs"] == counts["sort_pairs_tile"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_device_spans_read_the_cards_time(cuda_device):
+    """A span given the card times its work by CUDA events: the card's time
+    for a spin kernel, not the host's for its launch, resolved when the
+    records are read.  Under a profiler of CUDA activity alone the spans
+    add no device event of their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    want = start.elapsed_time(end)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tracing.span("probe.outer", device=cuda_device):
+            with tracing.span("probe.inner", device=cuda_device):
+                torch.cuda._sleep(cycles)
+            torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+    recs = {r["name"]: r for r in tracing.records()}
+    tracing.clear()
+    inner, outer = recs["probe.inner"], recs["probe.outer"]
+    assert inner["parent"] == outer["id"] and inner["request"] == outer["id"]
+    assert (inner["t1"] - inner["t0"]) * 1e3 < 0.5 * want
+    assert inner["device_ms"] == pytest.approx(want, rel=0.2)
+    assert outer["device_ms"] == pytest.approx(2 * want, rel=0.2)
+    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    assert not any(n.startswith("probe.") for n in names), names
