@@ -63,7 +63,9 @@ import dataclasses
 import itertools
 import math
 import os
+import threading
 import time
+import weakref
 from typing import Callable, Sequence
 
 import numpy as np
@@ -78,6 +80,12 @@ from repro_torch.core.workloads import TopKTooLarge
 from repro_torch.kernels import batched as batched_kernels
 from repro_torch.kernels import bitonic, ops
 from repro_torch.runtime import ranks
+
+# Most bytes of pinned answers that ``sort`` keeps checked out to callers
+# at once (``_PinnedAnswers``).  An answer past it comes back in pageable
+# memory, as it did before pinned answers, so a caller that holds many is
+# never slower than that and pins no more than this.
+PINNED_ANSWER_CEILING = 8 << 30
 
 # Granularity cap for stats histograms: coarser than P only ever
 # *over*-estimates the max bucket fraction (refining buckets can't raise it).
@@ -781,6 +789,67 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _pinned_block(n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``n`` keys of ``dtype`` in page-locked host memory from torch's
+    caching host allocator: a block freed earlier serves a later request
+    of its size, whose pages are then faulted in and locked no more.
+
+    While the tracer records, counts the block's bytes
+    (``engine.pinned_bytes``) and what the pool newly allocated for it
+    (``engine.pinned_new_bytes``, also fresh host memory,
+    ``engine.host_alloc_bytes``).  The pool rounds a block up to a power of
+    two, so a new block can count more than was asked for.
+    """
+    recording = tracing.recording()
+    before = _pinned_pool_bytes() if recording else 0
+    block = torch.empty(n, dtype=dtype, pin_memory=True)
+    if recording:
+        new = _pinned_pool_bytes() - before
+        tracing.count("engine.pinned_bytes", block.nbytes)
+        tracing.count("engine.pinned_new_bytes", new)
+        tracing.count("engine.host_alloc_bytes", new)
+    return block
+
+
+def _pinned_pool_bytes() -> int:
+    """Bytes the caching host allocator has ever taken from CUDA."""
+    return torch.cuda.host_memory_stats()["allocated_bytes.allocated"]
+
+
+class _PinnedAnswers:
+    """The bytes of pinned answers an engine has handed out and its callers
+    still hold, kept under ``PINNED_ANSWER_CEILING``."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.held = 0
+
+    def _give_back(self, nbytes: int) -> None:
+        with self._lock:
+            self.held -= nbytes
+
+    def answer(self, src: torch.Tensor) -> "np.ndarray | None":
+        """``src`` (on the card) copied into a pinned block, as a numpy array
+        that owns the block until its caller drops it; None past the
+        ceiling."""
+        nbytes = src.numel() * src.element_size()
+        with self._lock:
+            if self.held + nbytes > PINNED_ANSWER_CEILING:
+                return None
+            self.held += nbytes
+        try:
+            block = _pinned_block(src.numel(), src.dtype)
+            block.copy_(src)
+        except BaseException:
+            self._give_back(nbytes)
+            raise
+        out = block.numpy()
+        # the array holds ``out.base``, a tensor over the block, for as long
+        # as it or a view of it lives
+        weakref.finalize(out.base, self._give_back, nbytes)
+        return out
+
+
 # --------------------------------------------------------------------------
 # The engine
 # --------------------------------------------------------------------------
@@ -845,6 +914,7 @@ class SortEngine:
         self._fault_info: dict[str, dict] = {}
         self.trace_count = 0  # executor builds (cache misses)
         self.last_report: dict | None = None
+        self._pinned_answers = _PinnedAnswers()
 
     # ---------------------------------------------------------------- faults
     def set_fault_scenario(self, scenario) -> None:
@@ -1081,18 +1151,33 @@ class SortEngine:
             return self._sort_sim(x_np, plan, stats)
 
     def _sort_sim(self, x_np: np.ndarray, plan: SortPlan, stats) -> np.ndarray:
+        """The sim path.  On the card the keys go in and the answer comes
+        out through pinned host blocks (``_pinned_block``): one host copy
+        of the keys, DMA both ways, the pad tail zeroed on the card.  On
+        the CPU the keys are padded on the host."""
         n = x_np.size
         padded_n = plan.padded_n or ops.bucketed_length(n)
         capacity = plan.capacity or partition.default_capacity(padded_n, self.topo.total_procs)
+        pinned = self.device.type == "cuda"
         with tracing.span("engine.stage"):
-            x_pad = np.zeros(padded_n, dtypes.key_dtype(x_np.dtype))
-            keys = dtypes.to_keys(x_np)
-            x_pad[:n] = keys
-            tracing.count("engine.host_alloc_bytes", x_pad.nbytes)
-            if keys is not x_np:  # unsigned keys: the map makes a new array
-                tracing.count("engine.host_alloc_bytes", keys.nbytes)
+            if pinned:
+                block = _pinned_block(n, dtypes.key_torch_dtype(x_np.dtype))
+                dtypes.to_keys(x_np, out=block.numpy())
+            else:
+                x_pad = np.zeros(padded_n, dtypes.key_dtype(x_np.dtype))
+                keys = dtypes.to_keys(x_np)
+                x_pad[:n] = keys
+                tracing.count("engine.host_alloc_bytes", x_pad.nbytes)
+                if keys is not x_np:  # unsigned keys: the map makes a new array
+                    tracing.count("engine.host_alloc_bytes", keys.nbytes)
         with tracing.span("engine.h2d"):
-            xt = torch.from_numpy(x_pad).to(self.device)
+            if pinned:
+                xt = torch.empty(padded_n, dtype=block.dtype, device=self.device)
+                xt[:n].copy_(block)  # synchronous: the block is free again on return
+                xt[n:].zero_()
+                del block
+            else:
+                xt = torch.from_numpy(x_pad).to(self.device)
         with tracing.span("engine.device_sort"):
             retries = 0
             while True:
@@ -1109,17 +1194,20 @@ class SortEngine:
                 capacity += (-capacity) % 8
                 retries += 1
         with tracing.span("engine.d2h"):
-            answer = out[0, :n].cpu().numpy()
+            answer = self._pinned_answers.answer(out[0, :n]) if pinned else None
+            in_place = answer is not None
+            if not in_place:
+                answer = out[0, :n].cpu().numpy()
+                tracing.count("engine.host_alloc_bytes", answer.nbytes)
             counts_np = counts[0].cpu().numpy()
-            tracing.count("engine.host_alloc_bytes", answer.nbytes)
         self.last_report = {
             "plan": plan, "n": n, "stats": stats, "capacity_used": capacity,
             "counts_sum": got, "overflow_retries": retries,
             "counts": counts_np,
         }
         with tracing.span("engine.unmap"):
-            y = dtypes.from_keys(answer, x_np.dtype)
-            if y is not answer:  # unsigned keys: the map back makes a new array
+            y = dtypes.from_keys(answer, x_np.dtype, inplace=in_place)
+            if not in_place and y is not answer:  # unsigned keys: the map back makes a new array
                 tracing.count("engine.host_alloc_bytes", y.nbytes)
         return y
 

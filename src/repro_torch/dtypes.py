@@ -40,26 +40,44 @@ def key_dtype(dtype) -> np.dtype:
     return _SIGNED_TWIN.get(dt, dt)
 
 
+def key_torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of :func:`key_dtype`."""
+    return torch.from_numpy(np.empty(0, key_dtype(dtype))).dtype
+
+
 def _flip(signed: np.dtype):
     return signed.type(np.iinfo(signed).min)
 
 
-def to_keys(x: np.ndarray) -> np.ndarray:
-    """Map caller keys onto the port's key dtype (order-preserving)."""
+def to_keys(x: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """Map caller keys onto the port's key dtype (order-preserving).
+
+    With ``out`` (an array of the key dtype and ``x``'s size), the keys are
+    written into it and ``out`` is returned: one pass, no other array.
+    """
     x = np.asarray(x)
     signed = _SIGNED_TWIN.get(x.dtype)
+    if out is not None:
+        if signed is None:
+            np.copyto(out, x)
+        else:
+            np.bitwise_xor(x.view(signed), _flip(signed), out=out)
+        return out
     if signed is None:
         return x
     return x.view(signed) ^ _flip(signed)
 
 
-def from_keys(y: np.ndarray, dtype) -> np.ndarray:
-    """Undo :func:`to_keys`: port keys back to the caller's ``dtype``."""
+def from_keys(y: np.ndarray, dtype, inplace: bool = False) -> np.ndarray:
+    """Undo :func:`to_keys`: port keys back to the caller's ``dtype``;
+    with ``inplace``, over ``y``'s own memory (the result is a view of it)."""
     dt = np.dtype(dtype)
     y = np.asarray(y)
     signed = _SIGNED_TWIN.get(dt)
     if signed is None:
         return y
+    if inplace:
+        return np.bitwise_xor(y, _flip(signed), out=y).view(dt)
     return (y ^ _flip(signed)).view(dt)
 
 

@@ -96,6 +96,12 @@ def span(name: str, *, device: "torch.device | None" = None):
     return _Span(name, device)
 
 
+def recording() -> bool:
+    """Whether spans and counters are being kept: a counter that costs
+    work to read is read only then."""
+    return _profiler._is_profiler_enabled
+
+
 def count(name: str, n: int) -> None:
     """Add ``n`` to the counter ``name`` of this thread's innermost open span."""
     stack = _local.stack

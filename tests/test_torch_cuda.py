@@ -745,3 +745,112 @@ def test_cuda_device_spans_read_the_cards_time(cuda_device):
     assert outer["device_ms"] == pytest.approx(2 * want, rel=0.2)
     names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
     assert not any(n.startswith("probe.") for n in names), names
+
+
+PINNED_SIZES = (1 << 20, (1 << 20) + 3)
+
+
+def _card_sort_engine():
+    from repro_torch.core import SortEngine
+
+    return SortEngine(host_threshold=1 << 25)  # 2^20 keys stay on the sim path
+
+
+def _uniform_keys(rng, n, dtype):
+    # uniform keys: a skewed input would plan onto the host path
+    if dtype == np.float32:
+        return rng.uniform(-1e6, 1e6, n).astype(dtype)
+    return _keys(rng, n, dtype)
+
+
+def _is_pinned(y):
+    return torch.from_numpy(y).is_pinned()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PINNED_SIZES)
+@pytest.mark.parametrize("dtype", (np.int32, np.uint32, np.float32, np.int64), ids=lambda d: np.dtype(d).name)
+def test_cuda_pinned_answers_match_np_sort(dtype, n, cuda_device, rng):
+    eng = _card_sort_engine()
+    for _ in range(2):  # the second request reuses the pool's blocks
+        x = _uniform_keys(rng, n, dtype)
+        y = eng.sort(x)
+        assert eng.last_report["plan"].path == "sim"
+        assert y.dtype == x.dtype and y.shape == (n,) and y.flags.writeable and _is_pinned(y)
+        assert np.array_equal(y, np.sort(x))
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_answers_do_not_alias(cuda_device, rng):
+    eng = _card_sort_engine()
+    a, b = (_uniform_keys(rng, 1 << 20, np.int32) for _ in range(2))
+    ya = eng.sort(a)
+    yb = eng.sort(b)  # a request of the same size while ``ya`` is held
+    assert np.array_equal(ya, np.sort(a)) and np.array_equal(yb, np.sort(b))
+    yb[:] = 7  # the caller writes over its answer
+    ya2 = eng.sort(a)
+    assert np.array_equal(ya, np.sort(a)) and np.array_equal(ya2, np.sort(a))
+    assert np.all(yb == 7)
+    del yb  # its block goes back to the pool and serves the next request
+    yc = eng.sort(b)
+    assert np.array_equal(yc, np.sort(b)) and np.array_equal(ya, np.sort(a))
+
+
+def _request_counts(recs):
+    out = {}
+    for r in recs:
+        per = out.setdefault(r["request"], {})
+        for k, v in r["counts"].items():
+            per[k] = per.get(k, 0) + v
+    return [out[k] for k in sorted(out)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (np.int32, np.uint32), ids=lambda d: np.dtype(d).name)
+def test_cuda_second_request_reuses_its_pinned_blocks(dtype, cuda_device, rng):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    eng = _card_sort_engine()
+    n = 1 << 20
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            x = _uniform_keys(rng, n, dtype)
+            assert np.array_equal(eng.sort(x), np.sort(x))  # the answer is dropped at once
+    counts = _request_counts(tracing.records())
+    tracing.clear()
+    assert len(counts) == 2
+    assert counts[1] == {"engine.pinned_bytes": 2 * n * 4, "engine.pinned_new_bytes": 0,
+                         "engine.host_alloc_bytes": 0}
+    assert counts[0]["engine.pinned_bytes"] == 2 * n * 4
+
+
+@pytest.mark.cuda
+def test_cuda_answers_past_the_ceiling_are_pageable(cuda_device, rng, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.core import engine
+
+    n = 1 << 20
+    monkeypatch.setattr(engine, "PINNED_ANSWER_CEILING", n * 4)  # one held int32 answer
+    eng = _card_sort_engine()
+    xs = [_uniform_keys(rng, n, dtype) for dtype in (np.int32, np.int32, np.uint32)]
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ys = [eng.sort(x) for x in xs]
+    counts = _request_counts(tracing.records())
+    tracing.clear()
+    for x, y in zip(xs, ys):
+        assert y.dtype == x.dtype and np.array_equal(y, np.sort(x))
+    assert [_is_pinned(y) for y in ys] == [True, False, False]
+    assert eng._pinned_answers.held == n * 4
+    for c, mapped in zip(counts[1:], (0, n * 4)):  # the key block only; a fresh answer, mapped back anew
+        assert c["engine.pinned_bytes"] == n * 4
+        assert c["engine.host_alloc_bytes"] == c["engine.pinned_new_bytes"] + n * 4 + mapped
+    del ys[0]
+    assert eng._pinned_answers.held == 0
+    y = eng.sort(xs[0])
+    assert _is_pinned(y) and np.array_equal(y, np.sort(xs[0]))

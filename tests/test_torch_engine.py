@@ -261,3 +261,26 @@ def test_dist_and_faults_are_not_in_this_slice(port):
     assert port.plan(make_array("random", 3000, seed=29)).fault is None
     with pytest.raises(ValueError, match="mesh"):
         port.sort(np.arange(10), plan=SortPlan("dist", "paper", None, None, "forced"))
+
+
+def test_pinned_answers_stay_under_the_ceiling(monkeypatch):
+    # the ledger of pinned answers, with pageable blocks in place of pinned
+    # ones (pinned memory needs CUDA): an answer counts while it or a view
+    # of it lives, and past the ceiling none is handed out
+    monkeypatch.setattr(engine, "_pinned_block", lambda n, dtype: torch.empty(n, dtype=dtype))
+    monkeypatch.setattr(engine, "PINNED_ANSWER_CEILING", 3 * 400)
+    ledger = engine._PinnedAnswers()
+    src = torch.arange(100, dtype=torch.int32)
+    held = [ledger.answer(src) for _ in range(3)]
+    assert ledger.held == 1200 and ledger.answer(src) is None
+    assert all(np.array_equal(y, np.arange(100)) and y.flags.writeable for y in held)
+    held[1][:] = -1  # no answer aliases another
+    assert np.array_equal(held[0], np.arange(100)) and np.array_equal(held[2], np.arange(100))
+    view = held[0][10:20].view(np.uint32)
+    del held[0]
+    assert ledger.held == 1200
+    del view
+    assert ledger.held == 800
+    assert np.array_equal(ledger.answer(src), np.arange(100))  # dropped at once
+    held.clear()
+    assert ledger.held == 0

@@ -633,3 +633,15 @@ def test_unsigned_boundary_keeps_order_and_sentinel(dtype, rng):
     assert back.dtype == x.dtype and np.array_equal(back, x)
     t = dtypes.to_user_tensor(torch.from_numpy(k), dtype)
     assert np.array_equal(t.numpy(), x)
+
+
+@pytest.mark.parametrize("dtype", (np.int32, np.int64, np.float32, np.uint8, np.uint32, np.uint64),
+                         ids=lambda d: np.dtype(d).name)
+def test_key_maps_into_a_given_block(dtype, rng):
+    x = rng.integers(0, 100, 300).astype(dtype)
+    block = torch.empty(300, dtype=dtypes.key_torch_dtype(dtype)).numpy()
+    assert block.dtype == dtypes.key_dtype(dtype)
+    assert dtypes.to_keys(x, out=block) is block
+    np.testing.assert_array_equal(block, dtypes.to_keys(x))
+    back = dtypes.from_keys(block, dtype, inplace=True)
+    assert back.dtype == x.dtype and np.array_equal(back, x) and np.shares_memory(back, block)

@@ -97,6 +97,23 @@ def test_sort_spans_nest_in_order(dtype):
     assert counts == {"engine.host_alloc_bytes": padded * item + SORT_N * item + mapped}
 
 
+@pytest.mark.parametrize("dtype", (np.int32, np.uint32), ids=lambda d: np.dtype(d).name)
+def test_cpu_engine_takes_no_pinned_block(dtype):
+    eng = _engine()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for seed in range(2):
+            x = _keys(dtype=dtype, seed=seed)
+            np.testing.assert_array_equal(eng.sort(x), np.sort(x))
+    item = np.dtype(dtype).itemsize
+    mapped = 2 * SORT_N * item if np.dtype(dtype).kind == "u" else 0
+    per_request = {}
+    for r in tracing.records():
+        assert not any(k.startswith("engine.pinned") for k in r["counts"]), r
+        per_request[r["request"]] = per_request.get(r["request"], 0) + r["counts"].get("engine.host_alloc_bytes", 0)
+    want = ops.bucketed_length(SORT_N) * item + SORT_N * item + mapped  # a fresh padded buffer every request
+    assert list(per_request.values()) == [want, want]
+
+
 def test_each_request_is_its_own(monkeypatch):
     eng = _engine()
     with profile(activities=[ProfilerActivity.CPU]):
