@@ -89,26 +89,33 @@ PUBLISHED = {
 }
 
 
-def test_published_keys_kept_or_reduced():
+def published_errors(entry: dict, body: dict, published: dict) -> list[str]:
     """A published model keeps every number of its config under its key,
-    or names the key in ``reduced``."""
+    or names the key in ``reduced``; a width keeps its value inside a
+    nested group, listed or not."""
+    errors = []
+    for k, v in published.items():
+        if k not in entry["reduced"]:
+            if body.get(k) != v:
+                errors.append(f"{k} differs from the source and is not in reduced")
+        elif body.get(k) == v:
+            errors.append(f"{k} is listed in reduced but unchanged")
+        if isinstance(v, dict):
+            errors += [f"{k}.{sub}" for sub, x in v.items() if _is_width(sub) and (body.get(k) or {}).get(sub) != x]
+    share = body.get("shares", {})
+    errors += [f"shares.{k} states {s.get('published')} published, the source {published[k]}"
+               for k, s in share.items() if k in published and s.get("published") != published[k]]
+    return errors
+
+
+def test_published_keys_kept_or_reduced():
     seen = 0
     for c in BENCH["configs"]:
         published = PUBLISHED.get(c["source"])
         if published is None:
             continue
         seen += 1
-        body = json.loads((ROOT / c["file"]).read_text())
-        for k, v in published.items():
-            if k not in c["reduced"]:
-                assert body.get(k) == v, k
-            else:
-                assert body.get(k) != v, f"{k} is listed in reduced but unchanged"
-            if isinstance(v, dict):
-                # a width keeps its value inside a group, listed or not
-                for sub, x in v.items():
-                    if _is_width(sub):
-                        assert (body.get(k) or {}).get(sub) == x, f"{k}.{sub}"
+        assert not published_errors(c, json.loads((ROOT / c["file"]).read_text()), published), c["name"]
     assert seen == 1
 
 
@@ -116,21 +123,70 @@ def _is_width(key: str) -> bool:
     return key in WIDTHS or key.endswith(("_dim", "_rank", "_size"))
 
 
-def test_reduced_names_no_width():
-    for c in BENCH["configs"]:
-        assert not [k for k in c["reduced"] if _is_width(k)], c["name"]
+# what a chip may hold a share of: routed experts and rows of the vocabulary
+SHARE_KEYS = ("n_routed_experts", "vocab_size")
 
+
+def width_errors(entry: dict, body: dict) -> list[str]:
+    """The widths that ``reduced`` cuts.  A key of ``WIDTHS`` or one that
+    ends in ``_dim``, ``_rank`` or ``_size`` is a width; the one exception
+    is a key of ``SHARE_KEYS`` that the file states as a share."""
+    shares = body.get("shares", {})
+    return [f"{k} is a width" for k in entry["reduced"] if _is_width(k) and not (k in shares and k in SHARE_KEYS)]
+
+
+def contract_errors(entry: dict, body: dict) -> list[str]:
+    """Where a configuration's ``reduced`` breaks the contract.
+
+    No width is cut (``width_errors``), but a chip may hold a share of a
+    stated deployment: the file's ``shares`` group may hold
+    ``n_routed_experts`` and ``vocab_size``, and no other key, each as
+    ``{"published": N, "chips": c, "held": h, "how": "<what the c chips
+    split and how>"}``.  The file's value of the key is then ``held``,
+    ``held * chips == published`` exactly, and the key is in ``reduced``
+    and under neither ``reduced_why`` nor ``departures``.  Every key of
+    ``reduced`` has its reason in the file: ``reduced == cuts | departures
+    | shares``, the three disjoint (``reduced_why`` holds the cuts of
+    scale, ``departures`` where the port's model departs from the
+    published one, ``shares`` the shares)."""
+    errors = []
+    shares = body.get("shares", {})
+    for k, s in shares.items():
+        if k not in SHARE_KEYS:
+            errors.append(f"shares.{k}: a chip holds a share of {SHARE_KEYS} only")
+            continue
+        if set(s) != {"published", "chips", "held", "how"} or not (isinstance(s["how"], str) and s["how"]):
+            errors.append(f"shares.{k} needs exactly published, chips, held and how")
+            continue
+        if body.get(k) != s["held"]:
+            errors.append(f"{k} is {body.get(k)}, not the {s['held']} held")
+        if s["held"] * s["chips"] != s["published"]:
+            errors.append(f"shares.{k}: {s['held']} held x {s['chips']} chips != {s['published']} published")
+        if k not in entry["reduced"]:
+            errors.append(f"shares.{k} is not in reduced")
+    errors += width_errors(entry, body)
+    cuts, departs = set(body.get("reduced_why", {})), set(body.get("departures", {})) - {"why"}
+    share_keys = set(shares)
+    for a, b, name in ((cuts, departs, "reduced_why and departures"), (cuts, share_keys, "reduced_why and shares"),
+                       (departs, share_keys, "departures and shares")):
+        errors += [f"{k} is under both {name}" for k in sorted(a & b)]
+    if set(entry["reduced"]) != cuts | departs | share_keys:
+        errors.append(f"reduced {sorted(entry['reduced'])} is not reduced_why | departures | shares")
+    return errors
+
+
+def test_reduced_names_no_width():
+    """No width in ``reduced`` but a share (``width_errors``)."""
+    for c in BENCH["configs"]:
+        assert not width_errors(c, json.loads((ROOT / c["file"]).read_text())), c["name"]
 
 
 def test_every_changed_key_has_its_reason():
-    """Each key in ``reduced`` is explained in the configuration's file:
-    under ``reduced_why`` where it cuts scale, under ``departures`` where
-    the port's model departs from the published one."""
+    """Every key of ``reduced`` is a cut, a departure or a share, and
+    every share is the deployment's arithmetic (``contract_errors``)."""
     for c in BENCH["configs"]:
-        body = json.loads((ROOT / c["file"]).read_text())
-        cuts, departs = set(body.get("reduced_why", {})), set(body.get("departures", {})) - {"why"}
-        assert not cuts & departs
-        assert set(c["reduced"]) == cuts | departs, c["name"]
+        assert not contract_errors(c, json.loads((ROOT / c["file"]).read_text())), c["name"]
+
 
 def test_workloads_resolve():
     configs = {c["name"] for c in BENCH["configs"]}

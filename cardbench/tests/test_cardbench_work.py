@@ -5,6 +5,9 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
+import pytest
+from test_cardbench_shares import V3_RANK
+
 from cardbench import work
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -45,3 +48,67 @@ def test_bytes_by_hand():
     assert work.sort_bytes(1000, "int64") == 16_000
     assert work.count_rank_bytes(49_152, 64) == 4 * (2 * 49_152 + 64)
     assert work.moe_assignments({"num_experts_per_tok": 6}, {"batch": 2, "seq_len": 4096}) == 49_152
+
+
+def _parent_train_step_flops(config: dict, traffic: dict) -> float:
+    """``work.train_step_flops`` as it was before the share cut, kept here
+    so that the configurations without one are held to it with ``==``."""
+    c = config
+    d, H, L, V = c["hidden_size"], c["num_attention_heads"], c["num_hidden_layers"], c["vocab_size"]
+    r, dn, dr, dv = c["kv_lora_rank"], c["qk_nope_head_dim"], c["qk_rope_head_dim"], c["v_head_dim"]
+    B, S = traffic["batch"], traffic["seq_len"]
+    q_in = c["q_lora_rank"] or 0
+    if q_in:
+        attn = 2 * (d * q_in + q_in * H * (dn + dr))
+    else:
+        attn = 2 * d * H * (dn + dr)
+    attn += 2 * (d * (r + dr) + r * H * (dn + dv) + H * dv * d)
+    experts = c["num_experts_per_tok"] + c["n_shared_experts"]
+    moe = 2 * d * c["n_routed_experts"] + experts * 3 * 2 * d * c["moe_intermediate_size"]
+    dense = 3 * 2 * d * c["intermediate_size"]
+    k_dense = min(c["first_k_dense_replace"], L)
+    per_token = k_dense * (attn + dense) + (L - k_dense) * (attn + moe) + 2 * d * V
+    pairs = B * S * (S + 1) // 2
+    scores = L * pairs * 2 * H * (dn + dr + dv)
+    return 3.0 * (B * S * per_token + scores)
+
+
+V2_LITE = json.loads((ROOT / "cardbench/configs/deepseek-v2-lite-16b-4l.json").read_text())
+
+
+@pytest.mark.parametrize("config, traffic", [
+    (V2_LITE, "2x4k"), (V2_LITE, "1x8k"), (SMOKE, None), (dict(SMOKE, first_k_dense_replace=1), None),
+    (dict(SMOKE, q_lora_rank=24), None),
+], ids=["v2-lite-2x4k", "v2-lite-1x8k", "smoke", "smoke-dense", "smoke-q-lora"])
+def test_train_step_flops_unchanged_without_a_share(config, traffic):
+    t = json.loads((ROOT / f"cardbench/traffic/{traffic}.json").read_text()) if traffic else {"batch": 2, "seq_len": 32}
+    assert work.train_step_flops(config, t) == _parent_train_step_flops(config, t)
+
+
+def test_train_step_flops_of_an_expert_share():
+    """One EP32 rank of DeepSeek-V3 (8 of 256 experts, 16,160 of 129,280
+    rows, 1 dense and 4 MoE layers) at 1 x 4,096: 5.148e13 operations a
+    step, the router 256 wide and 8 * 8 / 256 routed experts a token; read
+    as if the 8 held were all, 8.486e13, 1.65 times as many."""
+    traffic = {"batch": 1, "seq_len": 4096}
+    flops = work.train_step_flops(V3_RANK, traffic)
+    assert abs(flops / 5.148e13 - 1) < 1e-3
+    whole = {k: v for k, v in V3_RANK.items() if k != "shares"}
+    assert abs(work.train_step_flops(whole, traffic) / 8.486e13 - 1) < 1e-3
+
+
+@pytest.mark.parametrize("config", [V2_LITE, SMOKE], ids=["v2-lite", "smoke"])
+def test_a_share_of_every_expert_counts_as_none(config):
+    """Held = published on one chip: the same router and experts a token."""
+    traffic = {"batch": 2, "seq_len": 64}
+    E = config["n_routed_experts"]
+    whole = dict(config, shares={"n_routed_experts": {"published": E, "chips": 1, "held": E, "how": "one chip"}})
+    assert work.train_step_flops(whole, traffic) == work.train_step_flops(config, traffic)
+
+
+def test_a_vocabulary_share_counts_the_rows_held():
+    """A share of the vocabulary changes nothing but the file's
+    ``vocab_size``, which the count already reads."""
+    traffic = {"batch": 1, "seq_len": 4096}
+    no_vocab_share = dict(V3_RANK, shares={"n_routed_experts": V3_RANK["shares"]["n_routed_experts"]})
+    assert work.train_step_flops(V3_RANK, traffic) == work.train_step_flops(no_vocab_share, traffic)

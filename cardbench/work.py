@@ -37,7 +37,12 @@ def train_step_flops(config: dict, traffic: dict) -> float:
     the causal half of each sequence (``S(S+1)/2`` query-key pairs); the
     whole times 3 for the backward.  Remat's recompute is not counted.
     Layers before ``first_k_dense_replace`` are dense MLPs of
-    ``intermediate_size``."""
+    ``intermediate_size``.  Where the chip holds a share of the experts
+    (``shares.n_routed_experts``: ``held`` of ``published``), the router
+    keeps its ``published`` outputs and a token's routed experts computed
+    here are ``num_experts_per_tok * held / published``, the expected
+    share, fixed by the shapes; heads and rows of the vocabulary count as
+    the file holds them."""
     c = config
     d, H, L, V = c["hidden_size"], c["num_attention_heads"], c["num_hidden_layers"], c["vocab_size"]
     r, dn, dr, dv = c["kv_lora_rank"], c["qk_nope_head_dim"], c["qk_rope_head_dim"], c["v_head_dim"]
@@ -49,7 +54,12 @@ def train_step_flops(config: dict, traffic: dict) -> float:
         attn = 2 * d * H * (dn + dr)
     attn += 2 * (d * (r + dr) + r * H * (dn + dv) + H * dv * d)
     experts = c["num_experts_per_tok"] + c["n_shared_experts"]
-    moe = 2 * d * c["n_routed_experts"] + experts * 3 * 2 * d * c["moe_intermediate_size"]
+    router = c["n_routed_experts"]
+    share = c.get("shares", {}).get("n_routed_experts")
+    if share is not None:
+        router = share["published"]
+        experts = c["num_experts_per_tok"] * share["held"] / share["published"] + c["n_shared_experts"]
+    moe = 2 * d * router + experts * 3 * 2 * d * c["moe_intermediate_size"]
     dense = 3 * 2 * d * c["intermediate_size"]
     k_dense = min(c["first_k_dense_replace"], L)
     per_token = k_dense * (attn + dense) + (L - k_dense) * (attn + moe) + 2 * d * V
