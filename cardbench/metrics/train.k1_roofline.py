@@ -1,6 +1,7 @@
 """The MoE dispatch's count/rank kernel K1 (``bcr_thread_counts`` or
 ``bcr_match`` in the device trace): its bytes a launch at the HBM peak
-over its device time."""
+over its device time.  Its buckets are the routed experts, all that a
+share's router routes over (``shares.n_routed_experts.published``)."""
 
 from cardbench import work
 from cardbench.readers import device_ms
@@ -16,5 +17,7 @@ def read(ctx):
         return None
     launches = sum(1 for rec in ctx["traced"] for n, _, _ in rec["events"] if is_k1(n))
     c = ctx["config"]
-    nbytes = launches * work.count_rank_bytes(work.moe_assignments(c, ctx["traffic"]), c["n_routed_experts"])
+    share = c.get("shares", {}).get("n_routed_experts")  # a rank ranks into every published expert
+    buckets = share["published"] if share else c["n_routed_experts"]
+    nbytes = launches * work.count_rank_bytes(work.moe_assignments(c, ctx["traffic"]), buckets)
     return 100.0 * nbytes / (ctx["hw"].HBM_BYTES_S / 1e3) / sum(per)

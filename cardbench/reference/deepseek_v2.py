@@ -82,6 +82,12 @@ def weight_specs(c: dict) -> list[tuple[str, tuple, "float | None"]]:
     ]
 
 
+def rule_leaves(c: dict) -> list[str]:
+    """The weights a step moves by a rule and not by a gradient: none in
+    DeepSeek-V2, whose every weight AdamW moves."""
+    return []
+
+
 # -------------------------------------------------------------- precision
 def _q8(x: torch.Tensor, dtype) -> torch.Tensor:
     """``x`` rounded to float8 ``dtype`` with one scale for the tensor."""
@@ -259,7 +265,8 @@ def train(make_weight, batches: list, c: dict, precision: str = "float32") -> di
     """``len(batches)`` AdamW steps from the weights ``make_weight(name)``
     gives.  Returns the readings the check compares: each step's loss,
     each weight's first gradient norm before the clip (``grad``) and the
-    norm of its change over all the steps (``change``), by name."""
+    norm of its change over all the steps (``change``), by name; and
+    where ``rule_leaves`` names weights, their change tensors (``rule``)."""
     o = c["optimizer"]
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -290,11 +297,17 @@ def train(make_weight, batches: list, c: dict, precision: str = "float32") -> di
                     W[n].sub_(lr * (step + o["weight_decay"] * W[n]))
             del gs
         del m, v
-        change = {}
+        change, rule, keep = {}, {}, set(rule_leaves(c))
         with torch.no_grad():
             for n in names:
-                change[n] = float(torch.linalg.vector_norm(W[n] - make_weight(n)))
+                delta = W[n] - make_weight(n)
+                change[n] = float(torch.linalg.vector_norm(delta))
+                if n in keep:
+                    rule[n] = delta.cpu()
                 W[n] = None
-        return {"loss": losses, "grad": grad, "change": change}
+        out = {"loss": losses, "grad": grad, "change": change}
+        if rule:
+            out["rule"] = rule
+        return out
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32

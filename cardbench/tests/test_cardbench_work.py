@@ -8,7 +8,9 @@ from pathlib import Path
 import pytest
 from test_cardbench_shares import V3_RANK
 
-from cardbench import work
+from cardbench import hw, work
+from cardbench import run as harness
+from cardbench.readers import device_ms
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -112,3 +114,38 @@ def test_a_vocabulary_share_counts_the_rows_held():
     traffic = {"batch": 1, "seq_len": 4096}
     no_vocab_share = dict(V3_RANK, shares={"n_routed_experts": V3_RANK["shares"]["n_routed_experts"]})
     assert work.train_step_flops(V3_RANK, traffic) == work.train_step_flops(no_vocab_share, traffic)
+
+
+K1 = harness.load(ROOT / "cardbench/metrics/train.k1_roofline.py", "metric")
+
+
+def _k1_ctx(config: dict, traffic: dict) -> dict:
+    """A traced run of three steps, each with two K1 launches of 0.021 ms
+    beside a GEMM."""
+    events = [("bcr_match_kernel", 0.0, 0.021), ("sm90_gemm", 0.05, 1.5), ("bcr_thread_counts", 2.0, 0.021)]
+    return {"busy_s": 1.0, "traced": [{"events": events} for _ in range(3)], "config": config, "traffic": traffic,
+            "hw": hw}
+
+
+def _parent_k1(ctx: dict) -> float:
+    """``train.k1_roofline`` as it was before shares."""
+    per = device_ms(ctx, K1.is_k1)
+    launches = sum(1 for rec in ctx["traced"] for n, _, _ in rec["events"] if K1.is_k1(n))
+    c = ctx["config"]
+    nbytes = launches * work.count_rank_bytes(work.moe_assignments(c, ctx["traffic"]), c["n_routed_experts"])
+    return 100.0 * nbytes / (ctx["hw"].HBM_BYTES_S / 1e3) / sum(per)
+
+
+@pytest.mark.parametrize("traffic", ["2x4k", "1x8k"])
+def test_k1_roofline_unchanged_without_a_share(traffic):
+    ctx = _k1_ctx(V2_LITE, json.loads((ROOT / f"cardbench/traffic/{traffic}.json").read_text()))
+    assert K1.read(ctx) == _parent_k1(ctx)
+
+
+def test_k1_roofline_counts_the_published_experts_under_a_share():
+    """One EP32 rank at 1 x 4,096: 32,768 assignments ranked into all 256
+    experts, not the 8 held."""
+    ctx = _k1_ctx(V3_RANK, {"batch": 1, "seq_len": 4096})
+    nbytes = 6 * 4 * (2 * 32_768 + 256)
+    assert K1.read(ctx) == pytest.approx(100.0 * nbytes / (hw.HBM_BYTES_S / 1e3) / (6 * 0.021), rel=1e-12)
+    assert K1.read(ctx) > _parent_k1(ctx)
